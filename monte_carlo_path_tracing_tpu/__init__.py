@@ -1,4 +1,4 @@
-"""TPU-native differentiable Monte Carlo path tracer.
+"""Differentiable Monte Carlo path tracer for an accelerator (NVIDIA GPU).
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 C++20 CPU renderer ``luotong96/Monte_Carlo_Path_Tracing`` (see SURVEY.md):
@@ -6,8 +6,9 @@ Phong BRDF evaluation/sampling, uniform area-light and Arvo spherical-triangle
 light sampling, three radiance estimators (split direct/indirect, BRDF-only,
 Veach MIS with the balance heuristic), Russian-roulette termination, triangle
 intersection, gamma tone mapping, cg23 OBJ/MTL/XML scene ingestion — all
-re-designed TPU-first: wavefront ray batches as sharded arrays, intersection
-as an MXU matmul Pallas kernel, counter-based threefry RNG, end-to-end
+re-designed for an accelerator: wavefront ray batches as sharded arrays,
+intersection in matmul form with fused Pallas (Triton) kernels, counter-based
+threefry RNG, end-to-end
 differentiability, and multi-device scaling via jax.sharding meshes.
 """
 

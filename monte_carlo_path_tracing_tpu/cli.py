@@ -62,14 +62,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    help="intersection implementation (default auto)")
     p.add_argument("--accel", default="auto",
                    choices=["auto", "all_pairs", "grid"],
-                   help="acceleration structure (auto = all-pairs with "
-                        "sort+cull dispatched by triangle count from the "
-                        "measured crossover, docs/tpu_scale_crossover.json; "
-                        "grid = reference's uniform grid + 3D-DDA, C10/C12)")
-    p.add_argument("--dot-mode", default=None,
-                   choices=[None, "vpu", "mxu", "mxu_fast"],
-                   help="pallas kernel dot mode (default: mxu_fast on TPU, "
-                        "exact vpu elsewhere)")
+                   help="acceleration structure (auto = all_pairs; grid = "
+                        "reference's uniform grid + 3D-DDA, C10/C12)")
     p.add_argument("--primary-cache", default=None, action="store_true",
                    help="cache per-pixel primary hits + depth-0 Arvo "
                         "prepare across spp (default auto: on when "
@@ -78,13 +72,7 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    action="store_false")
     p.add_argument("--ray-sort", action="store_true",
                    help="regen lane coherence sort (pure permutation; "
-                        "opt-in — a measured net loss at the bundled "
-                        "scenes' scale, docs/tpu_sort_cull.json)")
-    p.add_argument("--fused-arvo", default=None, action="store_true",
-                   help="force the fused Pallas Arvo selection kernel "
-                        "(default: auto — on for TPU)")
-    p.add_argument("--no-fused-arvo", dest="fused_arvo", action="store_false",
-                   help="force the jnp Arvo selection path")
+                        "opt-in)")
 
 
 def _load_scene(args):
@@ -124,11 +112,9 @@ def _make_cfg(args, cam):
         ref_mis_weights=args.ref_mis_weights or getattr(args, "ref_mis_full", False),
         mis_blocker_compat=getattr(args, "ref_mis_full", False),
         use_pallas=None if args.impl is None else (args.impl == "pallas"),
-        dot_mode=args.dot_mode,
         accel=args.accel,
         ray_sort=getattr(args, "ray_sort", False),
         primary_cache=getattr(args, "primary_cache", None),
-        fused_arvo=getattr(args, "fused_arvo", None),
     )
 
 
@@ -262,11 +248,15 @@ def cmd_inverse(args) -> int:
 
 
 def main(argv=None) -> int:
-    # Multi-host bring-up first — before any jax call touches the backend
+    from monte_carlo_path_tracing_tpu.parallel.mesh import init_distributed_if_needed
+    from monte_carlo_path_tracing_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
+    # Multi-host bring-up before any jax call touches the backend
     # (parallel/mesh.py; no-op unless launched under a multi-process
     # coordinator).
-    from monte_carlo_path_tracing_tpu.parallel.mesh import init_distributed_if_needed
-
     init_distributed_if_needed()
 
     ap = argparse.ArgumentParser(prog="monte_carlo_path_tracing_tpu")

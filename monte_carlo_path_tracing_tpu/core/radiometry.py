@@ -1,6 +1,6 @@
 """Radiance representation and gamma tone mapping.
 
-Radiance is an array with a trailing RGB axis [..., 3] — the TPU-native form
+Radiance is an array with a trailing RGB axis [..., 3] — the batched form
 of the reference's ``RadianceRGB`` triple (RadianceRGB.h:1-37). Operators
 (+, *scalar, pairwise * with radiance or BRDF throughput) are plain jnp
 arithmetic; only the non-trivial members are reimplemented here.

@@ -3,13 +3,13 @@
 The reference re-constructs a ``std::default_random_engine`` seeded from the
 wall clock at every call site (quirk Q1; reference main.cpp:127-131,323-326,
 Mylight.cpp:107-108, BRDF.cpp:38-39) — irreproducible and correlated within a
-clock tick. The TPU-native design replaces it with jax's counter-based
+clock tick. This design replaces it with jax's counter-based
 threefry: one base key per render, deterministically folded by
 (sample id, pixel id, bounce, purpose) — in that order — giving every
 (pixel, sample) path its own stream. The rendered image is therefore
 invariant to ray-chunk size, wavefront lane count, launch splitting, and
 device count (tests/test_render.py, test_regen.py pin this), and CPU-oracle
-vs TPU image comparison is exact-stream (SURVEY.md §7 Q1).
+vs accelerator image comparison is exact-stream (SURVEY.md §7 Q1).
 
 Mechanics: the renderers build a *batched key array* (one key per lane,
 pixel id folded in) and pass it down; every helper here broadcasts over
@@ -98,8 +98,8 @@ def pick_weighted(
     """[n_rows] categorical draws proportional to non-negative ``weights``
     ([L] shared or [n_rows, L] per-row) by inverse-CDF: ONE uniform per row
     plus a cumsum/compare, instead of the gumbel trick's [rows, L] bits +
-    log + argmax (which dominated the NEE phase cost on v5e — the gumbel
-    path draws L uniforms per lane). This is the TPU form of the
+    log + argmax (the gumbel path draws L uniforms per lane). This is the
+    batched form of the
     reference's ``std::discrete_distribution`` (Mylight.cpp:112-135,
     435-438), which is also inverse-CDF.
 

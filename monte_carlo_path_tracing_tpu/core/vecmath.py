@@ -1,14 +1,14 @@
 """Batched 3-vector math on arrays of shape [..., 3].
 
-TPU-native replacement for the reference's scalar ``vec`` class
+Batched replacement for the reference's scalar ``vec`` class
 (reference vec.cpp: cross_product vec.cpp:67-70, determinant vec.cpp:84-87,
 normalized vec.cpp:99-103) and the column-major ``matrix3d``
 (matrix3d.cpp:8-22,29-58). There is no vector *class*: everything is a pure
 function over jnp arrays whose trailing axis is the xyz component axis, so
 every op vmaps/jits/shards trivially and XLA fuses the elementwise chains.
 
-All functions are f32-friendly (the reference is f64 on CPU; on TPU f64 is
-not viable, so epsilons are chosen for f32 — see SURVEY.md §7 hard part 3).
+All functions are f32-friendly (the reference is f64 on CPU; on an accelerator
+f64 is slow, so epsilons are chosen for f32 — see SURVEY.md §7 hard part 3).
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ def orthonormal_basis(n: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 def from_local(w_local: jnp.ndarray, t: jnp.ndarray, b: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     """Map a local-frame direction to world space: x*t + y*b + z*n.
 
-    The TPU-native analogue of the reference's column-major basis matrix
+    The batched analogue of the reference's column-major basis matrix
     multiply (matrix3d.cpp:8-40): the basis is never materialised as a 3x3,
     the contraction is written out so XLA fuses it with neighbours.
     """

@@ -81,12 +81,6 @@ def recover_materials(
     match) is unchanged; the two-stream product keeps the clipped field's
     variance term out of the gradient.
     """
-    # The differentiation path must use the XLA matmul intersect: the
-    # pallas kernels are forward-only (no vjp), and on a TPU backend
-    # impl="auto" would otherwise select them inside the grad trace.
-    # Hit outputs carry no material gradients anyway (geometry is fixed
-    # in configs[3]), so this changes cost, not semantics.
-    cfg = cfg.replace(use_pallas=False)
     cam = scene_true.camera
     n_pix = cam.width * cam.height
     n_rays = min(rays_per_step or n_pix, n_pix)

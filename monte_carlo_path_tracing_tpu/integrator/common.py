@@ -47,8 +47,7 @@ def light_index_table(scene: Scene) -> jnp.ndarray:
 
 def build_tri_table(scene: Scene, tri_to_light: jnp.ndarray) -> jnp.ndarray:
     """[T, 34] packed per-triangle record so a path vertex needs ONE gather
-    instead of ~12 (TPU gathers are slow; measured 3x faster interaction
-    fetch). Layout: v0(3) e1(3) e2(3) vn(9) geo_n(3) kd(3) ks(3) ns(1)
+    instead of ~12. Layout: v0(3) e1(3) e2(3) vn(9) geo_n(3) kd(3) ks(3) ns(1)
     emission(3) is_light(1) light_idx(1) mat_id(1).
 
     Built from the materials table with plain gathers/concat, so gradients

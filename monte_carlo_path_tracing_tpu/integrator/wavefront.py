@@ -131,9 +131,7 @@ def render_rays(
 
 
 def _trace(cfg, accel, ro, rd, exclude):
-    return ops_intersect.intersect(
-        accel, ro, rd, exclude, impl=_impl(cfg), mode=cfg.dot_mode
-    )
+    return ops_intersect.intersect(accel, ro, rd, exclude, impl=_impl(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -196,12 +194,11 @@ def _sample_light(key, scene, cfg, si):
     return ls, None
 
 
-def _direct_term(scene, cfg, accel, si, ls, alive, d, key, cull=None):
+def _direct_term(scene, cfg, accel, si, ls, alive, d, key):
     """Shadow-rayed direct-light contribution of `shade` (main.cpp:298-314).
 
     Visibility requires the shadow ray's nearest hit to be exactly the
-    sampled light triangle (main.cpp:311). ``cull`` forwards to the
-    occlusion kernel (coherent pre-pass batches pass True).
+    sampled light triangle (main.cpp:311).
     """
     wl_raw = ls.coord - si.p
     dist2 = jnp.maximum(jnp.sum(wl_raw * wl_raw, axis=-1), 1e-20)
@@ -213,8 +210,7 @@ def _direct_term(scene, cfg, accel, si, ls, alive, d, key, cull=None):
     ok = alive & ls.valid & (cos_x > 0.0) & (cos_l > 0.0)
 
     blocked = ops_intersect.occluded(
-        accel, si.p, wl, dist, si.tri_id, impl=_impl(cfg), mode=cfg.dot_mode,
-        cull=cull,
+        accel, si.p, wl, dist, si.tri_id, impl=_impl(cfg)
     )
     visible = ok & ~blocked
 
@@ -305,17 +301,9 @@ def _light_pdf_of_hit(scene, cfg, si, prev_p, prev_ns, prev_wsum):
     return jnp.where(si.light_idx >= 0, pdf, 0.0)
 
 
-def _nee_term(scene, cfg, accel, si, ls, wsum, alive, cull=None, blocked=None,
-              shadow_mode=None):
+def _nee_term(scene, cfg, accel, si, ls, wsum, alive):
     """MIS light strategy as NEE (main.cpp:443-464 restructured per Q11):
-    contribution = I * f * cos / (p_light + p_brdf), both solid-angle.
-    ``cull`` forwards to the occlusion kernel (the primary pre-pass passes
-    True — its shadow batches are pixel-ordered, hence coherent); a caller
-    that already traced the shadow rays (e.g. in light-sorted order, see
-    integrator/regen.py's pre-pass) passes ``blocked`` instead.
-    ``shadow_mode`` overrides the occlusion kernel's dot mode (the any-hit
-    predicate tolerates coarser arithmetic than nearest-winner selection —
-    see utils/config.py::shadow_dot_mode)."""
+    contribution = I * f * cos / (p_light + p_brdf), both solid-angle."""
     wl_raw = ls.coord - si.p
     dist2 = jnp.maximum(jnp.sum(wl_raw * wl_raw, axis=-1), 1e-20)
     dist = jnp.sqrt(dist2)
@@ -325,11 +313,9 @@ def _nee_term(scene, cfg, accel, si, ls, wsum, alive, cull=None, blocked=None,
     cos_l = -vm.dot(wl, nl)
     ok = alive & ls.valid & (cos_x > 0.0) & (cos_l > 0.0)
 
-    if blocked is None:
-        blocked = ops_intersect.occluded(
-            accel, si.p, wl, dist, si.tri_id, impl=_impl(cfg),
-            mode=shadow_mode or cfg.dot_mode, cull=cull,
-        )
+    blocked = ops_intersect.occluded(
+        accel, si.p, wl, dist, si.tri_id, impl=_impl(cfg)
+    )
     visible = ok & ~blocked
 
     if cfg.light_sampler == LS_SPHERICAL:

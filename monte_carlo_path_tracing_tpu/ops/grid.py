@@ -2,13 +2,13 @@
 
 The reference builds a uniform grid over the scene AABB (cal_scene_boundingbox
 / meshing, Myobj.cpp:78-162) and walks it with a 3D-DDA
-(closet_ray_intersect, Myobj.cpp:334-474). On TPU the production default
-remains the all-pairs MXU formulation (ops/intersect.py) — at the
-reference's ~3k-triangle scale a dense matmul beats divergent traversal by
-orders of magnitude — but the grid is the right tool once T grows to the
-point where T/ray work dominates, and it is the faithful counterpart of the
-reference's accel for parity testing. This module implements it TPU-/JAX-
-natively: a host-side CSR build (cells -> triangle lists) and a batched
+(closet_ray_intersect, Myobj.cpp:334-474). The production default remains
+the all-pairs formulation (ops/intersect.py) — at the reference's
+~3k-triangle scale a dense batched test beats divergent traversal by orders
+of magnitude — but a spatial structure is the right tool once T grows to
+the point where T/ray work dominates, and the grid is the faithful
+counterpart of the reference's accel for parity testing. This module
+implements it in batched JAX: a host-side CSR build (cells -> triangle lists) and a batched
 `lax.while_loop` DDA in which every lane advances one cell per iteration.
 
 Reference semantics preserved:

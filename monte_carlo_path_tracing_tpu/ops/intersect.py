@@ -1,19 +1,18 @@
 """Intersection engine: accel build + implementation dispatch.
 
 The reference's acceleration structure is a uniform grid walked by 3D-DDA
-(Myobj.cpp:78-162, 334-474). On TPU, data-dependent traversal defeats the
-vector units, so the engine is an all-pairs tiled test in matmul form (see
-intersect_ref.py for the math): at the reference's scene scale (~3k
-triangles) brute force on the MXU beats any divergent traversal. The
-"accel build" is therefore just packing each triangle's [10,4] coefficient
-matrix (and padding to a tile multiple).
+(Myobj.cpp:78-162, 334-474). Here the default engine is an all-pairs tiled
+test in matmul form (see intersect_ref.py for the math): at the
+reference's scene scale (~3k triangles) brute force keeps every lane busy
+where a divergent per-ray traversal would not. The "accel build" is
+therefore just packing each triangle's [10,4] coefficient matrix (and
+padding to a tile multiple).
 
 Implementations:
-  - 'matmul': plain jnp einsum — XLA tiles it onto the MXU; works on CPU
-    (tests/oracle) and TPU.
-  - 'pallas': hand-tiled Pallas kernel streaming triangle tiles through
-    VMEM with an in-register running min (intersect_pallas.py); TPU only.
-  - 'auto': pallas on TPU, matmul elsewhere.
+  - 'matmul': plain jnp (intersect_ref.intersect_matmul); runs anywhere.
+  - 'pallas': fused Pallas kernels on the Triton route (intersect_pallas.py);
+    GPU only, or in interpret mode where a test sets PALLAS_INTERPRET.
+  - 'auto': :func:`impl_for_platform` of the default backend.
 
 A second, lights-only accel serves the reference's
 closet_ray_intersect_light_triangle (Myobj.cpp:476-622) — needed only in
@@ -34,62 +33,21 @@ from monte_carlo_path_tracing_tpu.ops.intersect_ref import (  # noqa: F401
 )
 from monte_carlo_path_tracing_tpu.scene.types import Scene
 
-#: Triangle tile size — last-dim lanes are 128; 4 outputs per triangle
-#: (det,u,v,t) => 128 triangles per 512-lane tile group.
+#: Triangle padding multiple of the packed accel.
 TRI_BLOCK = 512
 
-#: Per-kernel culling toggles: pass the accel's tri-tile AABBs to the
-#: pallas nearest / any-hit kernels (ordered traversal + early exit).
-#: Default OFF: at the bundled scenes' ~3k-triangle scale the per-tile
-#: branch overhead and the lane sort needed for tile coherence cost more
-#: than the skipped work saves end-to-end (see intersect_pallas.py header
-#: and docs/ARCHITECTURE.md "triangle culling" for the measurements);
-#: flip on for larger scenes / naturally coherent ray batches.
-CULL_NEAREST = False
-CULL_OCCLUDED = False
-
-#: accel="auto" dispatch threshold, from the measured crossover
-#: (docs/tpu_scale_crossover.json, veach tessellation variants on v5e):
-#: plain all-pairs wins at 3k/10k tris (sort+cull overhead > savings),
-#: sort+cull crosses over near ~30k. The culled kernel is the RESIDENT
-#: form (whole W in VMEM); above CULL_CHUNK_TRIS the triangle set is
-#: split into morton-contiguous chunks whose hits are min-composed in
-#: XLA, so culling works at any T. The reference's uniform grid
-#: (ops/grid.py) never wins on TPU at any measured scale (3k: 166x
-#: slower than all-pairs; still 60s/batch at 30k) — data-dependent DDA
-#: defeats the vector units, so "auto" never picks it.
-AUTO_CULL_MIN_TRIS = 24_000
-
-#: Max triangles per culled resident-kernel call: whole-W residency
-#: measured safe at 30k (4.9 MB of W) and scoped-vmem OOM near ~104k
-#: (26 MB); 32k-tri chunks (5.2 MB) leave headroom for per-tile temps.
-CULL_CHUNK_TRIS = 32_768
+#: Run the Pallas kernels in interpret mode. Only tests set this (on the
+#: CPU); nothing derives it from the backend.
+PALLAS_INTERPRET = False
 
 
-def _compose_nearest(a: Hit, b: Hit) -> Hit:
-    """Min-t composition of two partial nearest-hit results."""
-    take_b = b.valid & (~a.valid | (b.t < a.t))
-    pick = lambda x, y: jnp.where(take_b, y, x)
-    return Hit(
-        t=pick(a.t, b.t), tri_id=pick(a.tri_id, b.tri_id),
-        u=pick(a.u, b.u), v=pick(a.v, b.v), valid=a.valid | b.valid,
-    )
-
-
-def auto_policy(num_tris: int) -> dict:
-    """accel='auto' dispatch: which intersect configuration to run for a
-    scene of ``num_tris`` triangles (thresholds above; the integration
-    test pins the picks per T)."""
-    cull = num_tris >= AUTO_CULL_MIN_TRIS
-    return {
-        # in-loop tri-tile culling + the lane sort that makes tiles
-        # coherent (they only pay off together, docs/tpu_sort_cull.json)
-        "cull": cull,
-        "ray_sort": cull,
-        # coherent one-off batches (camera fans, pre-pass shadow batches)
-        # always cull — chunked composition covers any T
-        "cull_coherent": True,
-    }
+def impl_for_platform(platform: str) -> str:
+    """The intersect implementation for a JAX platform name."""
+    if platform == "gpu":
+        return "pallas"
+    if platform == "cpu":
+        return "matmul"
+    raise ValueError(f"no intersect implementation for platform {platform!r}")
 
 
 @jax.tree_util.register_dataclass
@@ -97,16 +55,6 @@ def auto_policy(num_tris: int) -> dict:
 class TriAccel:
     W: jnp.ndarray        # [Tpad, 10, 4] packed coefficient matrices
     tri_ids: jnp.ndarray  # [Tpad] int32 global ids (padding rows: -2)
-    # Per-triangle AABBs in MORTON-SORTED order (same order as W), used by
-    # the pallas kernels to build per-triangle-tile bounds for conservative
-    # (ray tile x triangle tile) culling — the TPU-native answer to the
-    # reference's uniform-grid traversal (Myobj.cpp:334-474): spatially
-    # compact dense tiles skipped by a scalar predicate instead of a
-    # divergent per-ray cell walk. Padding rows are (+inf, -inf) = empty,
-    # so padding tiles cull themselves. None (e.g. hand-built test accels)
-    # disables culling.
-    aabb_lo: jnp.ndarray | None = None  # [Tpad, 3]
-    aabb_hi: jnp.ndarray | None = None  # [Tpad, 3]
 
 
 def _morton_order(v0, e1, e2):
@@ -134,20 +82,14 @@ def _morton_order(v0, e1, e2):
 def _build(v0, e1, e2, ids, block: int) -> TriAccel:
     order = _morton_order(v0, e1, e2)
     v0, e1, e2, ids = v0[order], e1[order], e2[order], ids[order]
-    T = v0.shape[0]
     W = pack_tri_matrix(v0, e1, e2)
-    lo = jnp.minimum(v0, jnp.minimum(v0 + e1, v0 + e2))
-    hi = jnp.maximum(v0, jnp.maximum(v0 + e1, v0 + e2))
-    pad = (-T) % block
+    pad = (-v0.shape[0]) % block
     if pad:
         W = jnp.concatenate([W, jnp.zeros((pad, 10, 4), W.dtype)], axis=0)
         ids = jnp.concatenate([ids, jnp.full((pad,), -2, jnp.int32)], axis=0)
-        lo = jnp.concatenate([lo, jnp.full((pad, 3), jnp.inf, lo.dtype)], axis=0)
-        hi = jnp.concatenate([hi, jnp.full((pad, 3), -jnp.inf, hi.dtype)], axis=0)
     # Geometry is not a differentiation target (materials/emission are);
     # make that explicit so the accel never drags grads through packing.
-    sg = jax.lax.stop_gradient
-    return TriAccel(W=sg(W), tri_ids=ids, aabb_lo=sg(lo), aabb_hi=sg(hi))
+    return TriAccel(W=jax.lax.stop_gradient(W), tri_ids=ids)
 
 
 def build_accel(scene: Scene, block: int = TRI_BLOCK) -> TriAccel:
@@ -163,6 +105,11 @@ def build_light_accel(scene: Scene, block: int = TRI_BLOCK) -> TriAccel:
     )
 
 
+def _resolve(impl: str) -> str:
+    return impl_for_platform(jax.default_backend()) if impl == "auto" else impl
+
+
+@jax.named_scope("intersect_nearest")
 def intersect(
     accel: TriAccel,
     ro: jnp.ndarray,
@@ -170,51 +117,23 @@ def intersect(
     exclude_id: jnp.ndarray | None = None,
     impl: str = "auto",
     t_eps: float = T_EPS,
-    mode: str | None = None,
-    cull: bool | None = None,
 ) -> Hit:
     """Nearest hit of N rays against the accel's triangle set.
 
     Self-intersection avoidance is by triangle-id exclusion (quirk Q8,
-    Myobj.cpp:417), not ray offsetting. `mode` picks the pallas dot mode
-    (intersect_pallas.DOT_MODE); ignored by the other impls. ``cull``
-    overrides the module default CULL_NEAREST per call — pass True for
-    NATURALLY coherent batches (camera-ray fans, per-pixel shadow batches
-    in the primary pre-pass) where the tri-tile culling bites without a
-    lane sort.
+    Myobj.cpp:417), not ray offsetting.
     """
     from monte_carlo_path_tracing_tpu.ops import grid as grid_mod
 
     if isinstance(accel, grid_mod.GridAccel):
         return grid_mod.intersect_grid(accel, ro, rd, exclude_id, t_eps=t_eps)
-    if impl == "auto":
-        on_tpu = jax.default_backend() not in ("cpu",)
-        impl = "pallas" if on_tpu else "matmul"
-    if cull is None:
-        cull = CULL_NEAREST
+    impl = _resolve(impl)
     if impl == "pallas":
         from monte_carlo_path_tracing_tpu.ops import intersect_pallas
 
-        if cull and accel.aabb_lo is not None \
-                and accel.W.shape[0] > CULL_CHUNK_TRIS:
-            # Chunked composition (any T): run the culled RESIDENT kernel
-            # per morton-contiguous triangle chunk — each chunk is itself
-            # spatially compact, so per-chunk tile culling still bites —
-            # and min-compose the per-chunk nearest hits in XLA.
-            best = None
-            for c0 in range(0, accel.W.shape[0], CULL_CHUNK_TRIS):
-                sl = slice(c0, c0 + CULL_CHUNK_TRIS)
-                h = intersect_pallas.intersect_pallas(
-                    ro, rd, accel.W[sl], accel.tri_ids[sl], exclude_id,
-                    t_eps=t_eps, mode=mode,
-                    aabb_lo=accel.aabb_lo[sl], aabb_hi=accel.aabb_hi[sl],
-                )
-                best = h if best is None else _compose_nearest(best, h)
-            return best
         return intersect_pallas.intersect_pallas(
-            ro, rd, accel.W, accel.tri_ids, exclude_id, t_eps=t_eps, mode=mode,
-            aabb_lo=accel.aabb_lo if cull else None,
-            aabb_hi=accel.aabb_hi if cull else None,
+            ro, rd, accel.W, accel.tri_ids, exclude_id, t_eps=t_eps,
+            interpret=PALLAS_INTERPRET,
         )
     if impl == "matmul":
         return intersect_ref.intersect_matmul(
@@ -228,6 +147,7 @@ def intersect(
 OCCLUSION_MARGIN = 1e-3
 
 
+@jax.named_scope("intersect_occluded")
 def occluded(
     accel: TriAccel,
     ro: jnp.ndarray,
@@ -236,8 +156,6 @@ def occluded(
     exclude_id: jnp.ndarray | None = None,
     impl: str = "auto",
     t_eps: float = T_EPS,
-    mode: str | None = None,
-    cull: bool | None = None,
 ) -> jnp.ndarray:
     """[N] bool: something blocks the segment ro -> ro + t_max*rd.
 
@@ -252,35 +170,20 @@ def occluded(
     if isinstance(accel, grid_mod.GridAccel):
         hit = grid_mod.intersect_grid(accel, ro, rd, exclude_id, t_eps=t_eps)
         return hit.valid & (hit.t < t_max * (1.0 - OCCLUSION_MARGIN))
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() not in ("cpu",) else "matmul"
-    if cull is None:
-        cull = CULL_OCCLUDED
+    impl = _resolve(impl)
     scaled = t_max * (1.0 - OCCLUSION_MARGIN)
     if impl == "pallas":
         from monte_carlo_path_tracing_tpu.ops import intersect_pallas
 
         if exclude_id is None:
             exclude_id = jnp.full((ro.shape[0],), NO_HIT, jnp.int32)
-        if cull and accel.aabb_lo is not None \
-                and accel.W.shape[0] > CULL_CHUNK_TRIS:
-            blocked = None
-            for c0 in range(0, accel.W.shape[0], CULL_CHUNK_TRIS):
-                sl = slice(c0, c0 + CULL_CHUNK_TRIS)
-                b = intersect_pallas.occluded_pallas(
-                    ro, rd, accel.W[sl], accel.tri_ids[sl], exclude_id,
-                    scaled, t_eps=t_eps, mode=mode,
-                    aabb_lo=accel.aabb_lo[sl], aabb_hi=accel.aabb_hi[sl],
-                )
-                blocked = b if blocked is None else (blocked | b)
-            return blocked
         return intersect_pallas.occluded_pallas(
             ro, rd, accel.W, accel.tri_ids, exclude_id, scaled, t_eps=t_eps,
-            mode=mode,
-            aabb_lo=accel.aabb_lo if cull else None,
-            aabb_hi=accel.aabb_hi if cull else None,
+            interpret=PALLAS_INTERPRET,
         )
-    hit = intersect_ref.intersect_matmul(
-        ro, rd, accel.W, accel.tri_ids, exclude_id, t_eps=t_eps
-    )
-    return hit.valid & (hit.t < scaled)
+    if impl == "matmul":
+        hit = intersect_ref.intersect_matmul(
+            ro, rd, accel.W, accel.tri_ids, exclude_id, t_eps=t_eps
+        )
+        return hit.valid & (hit.t < scaled)
+    raise ValueError(f"unknown intersect impl {impl!r}")

@@ -1,26 +1,40 @@
-"""Pallas TPU kernels: matmul-form ray-triangle nearest hit & occlusion.
+"""Pallas kernels (Triton route): fused ray-triangle nearest hit and occlusion.
 
-Same math as intersect_ref.intersect_matmul (det/u/v/t numerators =
-[RT,10] @ [10,TT] dots on the MXU) with the accept test and reductions
-fused in VMEM — the [N,T] candidate field never touches HBM.
+Same math as intersect_ref.intersect_matmul — the det/u/v/t numerators are
+bilinear forms in the ray features [ro, rd, m = ro x rd] — but the accept
+test and the reduction over triangles run in registers, so the [N, T]
+candidate field never reaches device memory. XLA's scan form writes and
+re-reads an [N, 512, 4] f32 block per 512-triangle step.
+
+Layout. One program owns a tile of rays (TILES) and walks every triangle
+tile with an in-kernel ``fori_loop`` (Hopper runs
+programs in parallel and in no order, so nothing is carried across
+programs). Rays arrive feature-major ([9, N]: one contiguous row per
+feature) and triangles as the 19 structurally non-zero coefficient rows of
+``pack_tri_matrix`` ([19, T]), so every load is one contiguous row.
+
+Arithmetic. The dots are unrolled exact-f32 FMAs on the CUDA cores. There
+is no ``pl.dot``: K is 10, below Triton's minimum, and an f32 dot would run
+in TF32 (~3 decimal digits), which flips accept decisions.
 
 Two kernels:
 
-- `nearest`: per triangle tile, two reductions only (min-t + argmin lane);
-  the winning triangle's barycentrics/id are recovered OUTSIDE the kernel
-  by one [N]-sized gather + a 40-flop re-evaluation (XLA), which removes
-  two thirds of the in-kernel epilogue work.
-- `occluded`: shadow-ray any-hit test — is any accepted triangle closer
-  than t_max? One OR-reduction, no extraction at all. This is cheaper than
-  nearest-hit + compare and is what NEE visibility actually needs (the
-  reference computes a full nearest hit and compares ids, main.cpp:309-311;
-  "no closer hit than the sampled point" is the same predicate evaluated
-  directly).
+- ``nearest``: a division-free running best per (ray, lane) element, one
+  min and one index-min per ray at the end; the winner's id, barycentrics
+  and t are recovered outside the kernel by one [N]-sized gather and an
+  exact re-evaluation in XLA at Precision.HIGHEST.
+- ``occluded``: shadow-ray any-hit — is any accepted triangle closer than
+  t_max? An elementwise OR, reduced once per ray; no extraction. It is what NEE visibility needs
+  (the reference computes a full nearest hit and compares ids,
+  main.cpp:309-311; "no closer hit than the sampled point" is the same
+  predicate evaluated directly).
 
-DOT_MODE (see below) picks how the coefficient dots run: exact-f32 VPU /
-exact-f32 MXU emulation / fast bf16x3 MXU. Tests pin the exact modes
-against the jnp reference in interpret mode; the TPU scripts re-validate
-compiled outputs bit-for-bit (scripts/tpu_pallas_bench.py).
+The kernels are not differentiable and take no tangent: their inputs are
+detached, and gradients reach t/u/v through the XLA re-evaluation, exactly
+as they do through intersect_matmul.
+
+``interpret`` is an explicit argument. Nothing derives it from the backend;
+calling a compiled kernel where there is no GPU raises.
 """
 
 from __future__ import annotations
@@ -30,631 +44,227 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from monte_carlo_path_tracing_tpu.ops.intersect_ref import (
     BIG_T, DET_EPS, Hit, NO_HIT, T_EPS, ray_features,
 )
 
-#: Tile sizes from v5e sweeps (65k rays x 3584 tris). Without culling,
-#: tile size is a wash (7.1-8.6 ms nearest across 128..1792); WITH the
-#: morton-tile culling, small 128-triangle tiles win at the KERNEL level on
-#: coherent ray tiles (scripts/tpu_cull_bench.py: occluded 5.5 -> 2.0 ms,
-#: nearest 7.2 -> 6.1 ms at mask density ~0.5). End-to-end in the regen
-#: loop it still loses (round-3 decomposition, docs/tpu_sort_cull.json):
-#: with lanes sorted every iteration, culling saves only ~1.5 ms/iter at
-#: this scene scale, while the sort costs ~5 ms even with the cheap
-#: jnp.argsort (1.2 ms for the keys; the rest is permuting 13 lane-state
-#: arrays). Defaults therefore stay at the unculled configuration;
-#: culling/sorting remain opt-in knobs (ops.intersect.CULL_NEAREST/
-#: CULL_OCCLUDED + cfg.ray_sort) that win once tiles are naturally
-#: coherent (camera-ray passes, larger scenes).
-RAY_TILE = 512
-TRI_TILE = 1792
+#: (rays per program, triangles per inner-loop step, warps per program).
+#: The four numerator fields and the running best are [rays, triangles]
+#: f32 fields; at 32 x 64 over 4 warps each is 16 registers per thread.
+#: Chosen by a sweep on an H100 over seven shapes from 16 x 64 to 128 x 32
+#: (PERF.md, "Bring-up findings").
+TILES = (32, 64, 4)
 
-
-def _tri_tile(T: int, mode: str = "vpu", cull: bool = False) -> int:
-    # bf16x3 (mxu_fast) holds 3x split operands in VMEM: tile 1792 blows the
-    # 16 MB scoped-vmem budget at RAY_TILE=512 (measured: 26 MB), 896 fits.
-    cap = min(TRI_TILE, 896) if mode == "mxu_fast" else TRI_TILE
-    if cull:
-        # Ordered-traversal culling wants FINE tiles (more skippable units —
-        # round-3 kernel sweep: occluded 5.5 -> 2.0 ms at tile 128 on
-        # coherent rays) and the resident form's whole-W VMEM residency
-        # OOMs scoped vmem at 896 with the in-kernel bf16 split. 256 fits
-        # and keeps the per-tile early-exit useful.
-        cap = min(cap, 256)
-        return min(cap, ((T + 255) // 256) * 256)
-    return min(cap, ((T + 511) // 512) * 512)
-
-#: Dot modes for the [RT,10]@[10,TT] coefficient contraction:
-#:   "vpu"      — unrolled broadcast-FMA, exact f32 (the correctness mode;
-#:                matches the jnp reference bit-for-bit).
-#:   "mxu"      — dot_general at Precision.HIGHEST (6-pass f32 emulation;
-#:                exact, but K=10 gives ~8% systolic occupancy — measured at
-#:                parity with vpu on v5e).
-#:   "mxu_fast" — 3-pass bf16x3 MXU decomposition (~2^-16-relative error,
-#:                roughly half of f32's mantissa). Accept-test decisions may
-#:                flip deterministically on a ~1e-5-relative fringe of
-#:                grazing edge cases; validated against the exact kernel on
-#:                full renders (scripts/tpu_pallas_bench.py), and the
-#:                image-level effect measured at 0.6-3% of ordinary
-#:                seed-to-seed MC noise at equal spp
-#:                (docs/tpu_dotmode_variance.json) — statistically free.
-#:
-#: Default: mxu_fast on TPU (-12% nearest-kernel time, see the variance
-#: study above); vpu elsewhere (the exact mode — interpret-mode tests pin
-#: it against the jnp reference bit-for-bit).
-DOT_MODE = None  # resolved per-backend by _default_mode()
-
-
-def _default_mode() -> str:
-    if DOT_MODE is not None:
-        return DOT_MODE
-    return "mxu_fast" if jax.default_backend() == "tpu" else "vpu"
-
-# Python-literal twins of intersect_ref's jnp sentinels (a pallas kernel may
-# not capture traced constants).
+# Python-literal twins of intersect_ref's sentinels (a kernel may not
+# capture array constants).
 _BIG_T = 3.0e38
 _NO_HIT = -1
+_NO_IDX = 2**31 - 1
+
+#: Row layout of the packed triangle coefficients (see _pack_tris).
+_N_ROWS = 19
 
 
-def _mxu(g, w, precision):
-    return jax.lax.dot_general(
-        g, w,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=precision,
-    )
+def _pack_tris(W: jnp.ndarray, tri_ids: jnp.ndarray, tile: int):
+    """[T, 10, 4] coefficient matrices -> ([19, Tp] f32, [Tp] i32).
 
-
-def _split_bf16(x):
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def _dot(g, w, mode):
-    if mode == "vpu":
-        acc = g[:, 0:1] * w[0:1, :]
-        for k in range(1, 10):
-            acc = acc + g[:, k : k + 1] * w[k : k + 1, :]
-        return acc
-    if mode == "mxu":
-        return _mxu(g, w, jax.lax.Precision.HIGHEST)
-    if mode == "mxu_bf16":            # 1-pass, ~8 mantissa bits: measurement only
-        return _mxu(g.astype(jnp.bfloat16), w.astype(jnp.bfloat16),
-                    jax.lax.Precision.DEFAULT)
-    if mode == "mxu_fast":
-        # Hand-rolled bf16x3 (Mosaic rejects Precision.HIGH in-kernel).
-        # x = hi + lo exactly in bf16 pairs (lo ~= 2^-9 * x); x.y ~=
-        # hi.hi + hi.lo + lo.hi — the dropped lo.lo term plus the split
-        # residual is ~2^-16..2^-17 relative (~1e-5), i.e. roughly half
-        # of f32's mantissa, in 3 single-pass MXU matmuls. Accept/occlusion
-        # decisions can flip deterministically on that ~1e-5-relative
-        # fringe; full-render validation lives in scripts/tpu_pallas_bench.
-        g_hi, g_lo = _split_bf16(g)
-        w_hi, w_lo = _split_bf16(w)
-        d = jax.lax.Precision.DEFAULT
-        return _mxu(g_hi, w_hi, d) + (_mxu(g_hi, w_lo, d) + _mxu(g_lo, w_hi, d))
-    raise ValueError(f"unknown pallas dot mode {mode!r}")  # trace-time
-
-
-def _tile_accepts(g, w_ref, ids_ref, excl, b, t_eps, mode):
-    """Shared per-tile accept computation. Returns (margin, tp, adet):
-    a triangle is accepted iff margin > 0.
-
-    The five accept conditions (|det|>eps, u>=0, v>=0, u+v<=det, t>t_eps —
-    reference Myobj.cpp:175-188, all scaled by |det|) are folded into ONE
-    min-composed margin (accept iff margin >= 0) instead of five compares +
-    five ands: each VPU min replaces a compare+and pair, and the exclusion
-    test (quirk Q8) rides as a select to -1. Exact-edge hits (u == 0 etc.,
-    real on axis-aligned scenes) keep their >= accept; only the two eps
-    thresholds flip from strict > to >= — a measure-zero, harmless change.
-    This is the accept-test-bound kernel's hot elementwise path — every op
-    here costs ~0.06 ms per 64k-ray x 3584-tri launch."""
-    det = _dot(g, w_ref[b, 0], mode)      # [RT, TT]
-    u_num = _dot(g, w_ref[b, 1], mode)
-    v_num = _dot(g, w_ref[b, 2], mode)
-    t_num = _dot(g, w_ref[b, 3], mode)
-    ids = ids_ref[b]                # [TT] i32
-
-    s = jnp.sign(det)
-    adet = det * s
-    up = u_num * s
-    vp = v_num * s
-    tp = t_num * s
-    m = jnp.minimum(up, vp)
-    m = jnp.minimum(m, adet - (up + vp))
-    m = jnp.minimum(m, tp - t_eps * adet)
-    m = jnp.minimum(m, adet - DET_EPS)
-    m = jnp.where(ids[None, :] == excl, -1.0, m)
-    return m, tp, adet
-
-
-def _kernel_nearest(g_ref, w_ref, ids_ref, excl_ref, *rest,
-                    nb: int, t_eps: float, mode: str, cull: bool):
-    if cull:
-        order_ref, te_ref, cap_ref, t_ref, idx_ref = rest
-    else:
-        t_ref, idx_ref = rest
-    g = g_ref[...]
-    excl = excl_ref[...]            # [RT, 1]
-    RT = g.shape[0]
-
-    def live(b, carry):
-        bt, bidx = carry
-        m, tp, adet = _tile_accepts(g, w_ref, ids_ref, excl, b, t_eps, mode)
-        # One division per element is unavoidable for the cross-triangle
-        # min (t = tp/adet has no division-free order-preserving proxy);
-        # rejected lanes divide by whatever adet they have — safe because
-        # they are overwritten with BIG_T before the reduction.
-        t = jnp.where(m >= 0.0, tp / jnp.where(adet > 0, adet, 1.0), _BIG_T)
-        tile_best = jnp.min(t, axis=1)
-        lane = jnp.argmin(t, axis=1).astype(jnp.int32)
-        better = tile_best < bt
-        return (
-            jnp.where(better, tile_best, bt),
-            jnp.where(better, b * t.shape[1] + lane, bidx),
-        )
-
-    def body(k, carry):
-        if not cull:
-            return live(k, carry)
-        # Front-to-back ordered traversal with early exit — the TPU-native
-        # replacement of the reference's per-ray DDA walk with in-cell
-        # acceptance (Myobj.cpp:334-474): tri tiles are visited in order of
-        # conservative entry distance te; once EVERY ray's current nearest
-        # hit is closer than the next tile's te, no remaining tile can
-        # improve any ray, and masked-out tiles carry te = +inf.
-        i = pl.program_id(0)
-        te = te_ref[i, k]
-        b = order_ref[i, k]
-        visit = jnp.max(carry[0]) >= te
-        return jax.lax.cond(visit, lambda c: live(b, c), lambda c: c, carry)
-
-    if cull:
-        # Per-ray scene-exit cap: rays report NO_HIT via the id, so the
-        # t carry can start at the cap instead of +inf — miss rays then
-        # stop forcing far tiles to be visited.
-        bt0 = cap_ref[...][:, 0]
-    else:
-        bt0 = jnp.full((RT,), _BIG_T, jnp.float32)
-    init = (bt0, jnp.full((RT,), _NO_HIT, jnp.int32))
-    bt, bidx = jax.lax.fori_loop(0, nb, body, init)
-    t_ref[...] = bt[:, None]
-    idx_ref[...] = bidx[:, None]
-
-
-def _kernel_occluded(g_ref, w_ref, ids_ref, excl_ref, tmax_ref, *rest,
-                     nb: int, t_eps: float, mode: str, cull: bool):
-    if cull:
-        order_ref, te_ref, out_ref = rest
-    else:
-        (out_ref,) = rest
-    g = g_ref[...]
-    excl = excl_ref[...]
-    tmax = tmax_ref[...]            # [RT, 1] pre-scaled: t_max * (1 - eps)
-    RT = g.shape[0]
-
-    def live(b, blocked):
-        m, tp, adet = _tile_accepts(g, w_ref, ids_ref, excl, b, t_eps, mode)
-        # Division-free proximity test: t < tmax  <=>  tp < tmax * adet
-        # (both tp and adet are det-sign-corrected, adet >= 0).
-        hit_close = (m >= 0.0) & (tp < tmax * adet)
-        # int32 carry: Mosaic cannot legalize an i1 vector loop carry
-        return blocked | (jnp.sum(hit_close.astype(jnp.int32), axis=1) > 0).astype(jnp.int32)
-
-    def body(k, blocked):
-        if not cull:
-            return live(k, blocked)
-        # Near-first visit order + two early exits: skip masked tiles
-        # (te = +inf) and stop once every ray is already blocked (an
-        # any-hit has nothing left to prove).
-        i = pl.program_id(0)
-        te = te_ref[i, k]
-        b = order_ref[i, k]
-        visit = (te < _BIG_T / 2) & (jnp.min(blocked) < 1)
-        return jax.lax.cond(visit, lambda c: live(b, c), lambda c: c, blocked)
-
-    blocked = jax.lax.fori_loop(0, nb, body, jnp.zeros((RT,), jnp.int32))
-    out_ref[...] = blocked[:, None]
-
-
-def _accept_epilogue(det, u_num, v_num, t_num, ids, excl, t_eps):
-    """Shared margin composition (see _tile_accepts)."""
-    s = jnp.sign(det)
-    adet = det * s
-    up = u_num * s
-    vp = v_num * s
-    tp = t_num * s
-    m = jnp.minimum(up, vp)
-    m = jnp.minimum(m, adet - (up + vp))
-    m = jnp.minimum(m, tp - t_eps * adet)
-    m = jnp.minimum(m, adet - DET_EPS)
-    m = jnp.where(ids[None, :] == excl, -1.0, m)
-    return m, tp, adet
-
-
-def _tile_accepts_s(g, wblk, ids, excl, t_eps, mode):
-    """Streamed-variant accept computation: ``wblk`` is THIS tile's
-    coefficient block delivered by the grid as [4,10,TT] f32; mxu_fast's
-    bf16 hi/lo split happens INSIDE the kernel via _dot."""
-    dd = lambda i: _dot(g, wblk[i], mode)
-    return _accept_epilogue(
-        dd(0), dd(1), dd(2), dd(3), ids, excl, t_eps)
-
-
-def _unpack_stream_refs(refs, mode, n_out):
-    """(g, ids, excl, w[, extra...], outs...) -> pieces. All modes ship ONE
-    f32 w block; mxu_fast splits to bf16 inside the kernel (see
-    _stream_w_inputs for why pre-splitting is forbidden)."""
-    g_ref, ids_ref, excl_ref = refs[:3]   # ids block: [1, 1, tile]
-    w_ref = refs[3]
-    extra = refs[4:len(refs) - n_out]
-    outs = refs[len(refs) - n_out:]
-    return g_ref, ids_ref, excl_ref, w_ref[0], extra, outs
-
-
-def _kernel_nearest_s(*refs, t_eps: float, mode: str):
-    """Streamed nearest: grid = (ray tiles, tri tiles); the output block
-    (indexed by ray tile only) is revisited across the minor tri-tile
-    dim and accumulates the running min — W tiles live in VMEM only one
-    (double-buffered) block at a time, so T is bounded by HBM, not VMEM."""
-    g_ref, ids_ref, excl_ref, wblk, _, (t_ref, idx_ref) = \
-        _unpack_stream_refs(refs, mode, 2)
-    b = pl.program_id(1)
-    g = g_ref[...]
-    excl = excl_ref[...]
-    ids = ids_ref[0, 0]
-    m, tp, adet = _tile_accepts_s(g, wblk, ids, excl, t_eps, mode)
-    t = jnp.where(m >= 0.0, tp / jnp.where(adet > 0, adet, 1.0), _BIG_T)
-    tile_best = jnp.min(t, axis=1)
-    lane = jnp.argmin(t, axis=1).astype(jnp.int32)
-
-    @pl.when(b == 0)
-    def _init():
-        t_ref[...] = jnp.full(t_ref.shape, _BIG_T, jnp.float32)
-        idx_ref[...] = jnp.full(idx_ref.shape, _NO_HIT, jnp.int32)
-
-    prev_t = t_ref[...][:, 0]
-    prev_i = idx_ref[...][:, 0]
-    better = tile_best < prev_t
-    t_ref[...] = jnp.where(better, tile_best, prev_t)[:, None]
-    idx_ref[...] = jnp.where(
-        better, b * t.shape[1] + lane, prev_i)[:, None]
-
-
-def _kernel_occluded_s(*refs, t_eps: float, mode: str):
-    """Streamed any-hit (see _kernel_nearest_s): OR-accumulates blocked
-    across the minor tri-tile grid dim."""
-    g_ref, ids_ref, excl_ref, wblk, (tmax_ref,), (out_ref,) = \
-        _unpack_stream_refs(refs, mode, 1)
-    b = pl.program_id(1)
-    g = g_ref[...]
-    excl = excl_ref[...]
-    tmax = tmax_ref[...]
-    m, tp, adet = _tile_accepts_s(g, wblk, ids_ref[0, 0], excl, t_eps, mode)
-    hit_close = (m >= 0.0) & (tp < tmax * adet)
-    tile_blocked = (jnp.sum(hit_close.astype(jnp.int32), axis=1) > 0)
-
-    @pl.when(b == 0)
-    def _init():
-        out_ref[...] = jnp.zeros(out_ref.shape, jnp.int32)
-
-    out_ref[...] = out_ref[...] | tile_blocked.astype(jnp.int32)[:, None]
-
-
-def _stream_w_inputs(Wb, tile, mode):
-    """(w_args, w_specs) for the streamed calls. ALL modes ship the f32
-    coefficient block; mxu_fast re-splits to bf16 hi/lo in-kernel.
-
-    Do NOT pre-split W to bf16 host-side and ship hi/lo blocks: on this
-    Mosaic version a [1,4,10,tile] bf16 grid-sliced block silently loses
-    the lo operand's contribution (measured round 4: the kernel behaved as
-    1-pass bf16, ~0.3% relative coefficient error — enough to flip nearest
-    -hit ordering between surfaces 0.1% apart in t, e.g. an emitter lying
-    just above its ceiling; cornell's lights vanished from primary hits).
-    The in-kernel split is bit-correct (validated against the f64 oracle on
-    the same rays) and costs only an elementwise convert per tile visit;
-    HBM traffic is identical (4 B either way)."""
-    spec = pl.BlockSpec(
-        (1, 4, 10, tile), lambda i, b: (b, 0, 0, 0),
-        memory_space=pltpu.VMEM,
-    )
-    return [Wb], [spec]
-
-
-def _tile_aabbs(lo, hi, tile):
-    """Per-triangle AABBs [Tp,3] -> per-tile AABBs [nb,3] (padding to the
-    kernel tile with empty boxes, matching _pack_blocks)."""
-    T = lo.shape[0]
-    pad = (-T) % tile
-    if pad:
-        lo = jnp.concatenate([lo, jnp.full((pad, 3), jnp.inf, lo.dtype)], axis=0)
-        hi = jnp.concatenate([hi, jnp.full((pad, 3), -jnp.inf, hi.dtype)], axis=0)
-    nb = lo.shape[0] // tile
-    return lo.reshape(nb, tile, 3).min(axis=1), hi.reshape(nb, tile, 3).max(axis=1)
-
-
-def _cull_masks(ro, rd, lo_t, hi_t, t_cap):
-    """Conservative [n_ray_tiles, nb] overlap flags: can ANY ray of the tile
-    (origin in the tile's origin box, direction in its direction box,
-    t in [0, max t_cap]) touch the triangle tile's AABB?
-
-    Interval arithmetic on the slab test: per axis the reachable parameter
-    interval is the hull of (b - o) / d over the boxes; a direction
-    interval straddling zero yields no constraint (conservative). Ray
-    sorting (integrator/regen.py) makes tiles coherent so the boxes are
-    tight; with incoherent tiles every mask degenerates to 1 and the
-    kernel simply tests everything — never incorrect, only slower."""
-    nrt = ro.shape[0] // RAY_TILE
-    o = ro.reshape(nrt, RAY_TILE, 3)
-    d = rd.reshape(nrt, RAY_TILE, 3)
-    o_lo, o_hi = o.min(axis=1), o.max(axis=1)            # [nrt,3]
-    d_lo, d_hi = d.min(axis=1), d.max(axis=1)
-    tc = t_cap.reshape(nrt, RAY_TILE).max(axis=1)        # [nrt]
-
-    n_lo = lo_t[None, :, :] - o_hi[:, None, :]           # [nrt,nb,3]
-    n_hi = hi_t[None, :, :] - o_lo[:, None, :]
-    dl = jnp.broadcast_to(d_lo[:, None, :], n_lo.shape)
-    dh = jnp.broadcast_to(d_hi[:, None, :], n_lo.shape)
-    straddle = (dl <= 0.0) & (dh >= 0.0)
-    dls = jnp.where(straddle, 1.0, dl)
-    dhs = jnp.where(straddle, 1.0, dh)
-    q = jnp.stack([n_lo / dls, n_lo / dhs, n_hi / dls, n_hi / dhs])
-    t_ax_lo = jnp.where(straddle, -_BIG_T, q.min(axis=0))
-    t_ax_hi = jnp.where(straddle, _BIG_T, q.max(axis=0))
-    t_enter = t_ax_lo.max(axis=-1)                       # [nrt,nb]
-    t_exit = t_ax_hi.min(axis=-1)
-    nonempty = (hi_t >= lo_t).all(axis=-1)[None, :]      # padding tiles: empty
-    ok = (t_enter <= t_exit) & (t_exit >= 0.0) & (t_enter <= tc[:, None]) & nonempty
-    # Near-first visit schedule: per ray tile, tri tiles sorted by their
-    # conservative entry distance (masked-out tiles pushed to +inf so the
-    # kernel's te test skips them without a separate mask).
-    te = jnp.where(ok, jnp.maximum(t_enter, 0.0), _BIG_T)
-    order = jnp.argsort(te, axis=1).astype(jnp.int32)
-    te_sorted = jnp.take_along_axis(te, order, axis=1)
-    return order, te_sorted
-
-
-def _scene_exit_cap(ro, rd, lo_t, hi_t, t_eps):
-    """Per-ray conservative upper bound on any triangle hit t: the exit
-    parameter of the ray against the global scene AABB (every triangle lies
-    inside it), with fp slack. Rays that miss the box get cap 0 — they can
-    hit nothing."""
-    glo = jnp.min(jnp.where(jnp.isfinite(lo_t), lo_t, jnp.inf), axis=0)
-    ghi = jnp.max(jnp.where(jnp.isfinite(hi_t), hi_t, -jnp.inf), axis=0)
-    inv = 1.0 / jnp.where(jnp.abs(rd) > 1e-30, rd, 1e-30)
-    t0 = (glo[None] - ro) * inv
-    t1 = (ghi[None] - ro) * inv
-    t_near = jnp.max(jnp.minimum(t0, t1), axis=-1)
-    t_far = jnp.min(jnp.maximum(t0, t1), axis=-1)
-    hit_box = (t_far >= jnp.maximum(t_near, 0.0))
-    cap = t_far * 1.001 + 1e-3 + t_eps
-    return jnp.where(hit_box, cap, 0.0).astype(jnp.float32)
-
-
-def _pack_blocks(W: jnp.ndarray, tri_ids: jnp.ndarray, tile: int):
-    """[Tp,10,4] -> ([nb,4,10,tile] f32, [nb,tile] i32, [nb*tile,10,4]),
-    padding to a tile multiple."""
+    Keeps only the non-zero entries of pack_tri_matrix's layout:
+      rows 0-2   det   = rd . W[3:6, 0]
+      rows 3-8   u_num = rd . W[3:6, 1] + m . W[6:9, 1]
+      rows 9-14  v_num = rd . W[3:6, 2] + m . W[6:9, 2]
+      rows 15-18 t_num = ro . W[0:3, 3] + W[9, 3]
+    Padding triangles are all-zero (det = 0, never accepted)."""
     T = W.shape[0]
     pad = (-T) % tile
+    cols = jnp.concatenate(
+        [W[:, 3:6, 0], W[:, 3:6, 1], W[:, 6:9, 1], W[:, 3:6, 2],
+         W[:, 6:9, 2], W[:, 0:3, 3], W[:, 9:10, 3]],
+        axis=1,
+    )                                                   # [T, 19]
+    ids = tri_ids
     if pad:
-        W = jnp.concatenate([W, jnp.zeros((pad, 10, 4), W.dtype)], axis=0)
-        tri_ids = jnp.concatenate(
-            [tri_ids, jnp.full((pad,), NO_HIT - 1, jnp.int32)], axis=0
+        cols = jnp.concatenate([cols, jnp.zeros((pad, _N_ROWS), cols.dtype)])
+        ids = jnp.concatenate([ids, jnp.full((pad,), NO_HIT - 1, jnp.int32)])
+    return cols.T, ids
+
+
+def _ray_rows(ro: jnp.ndarray, rd: jnp.ndarray, n_pad: int) -> jnp.ndarray:
+    """[9, Np] feature-major rays: ro, rd, m = ro x rd (the constant 1
+    feature is implicit in the t row)."""
+    g = jnp.concatenate([ro, rd, jnp.cross(ro, rd)], axis=1)
+    if n_pad:
+        g = jnp.concatenate([g, jnp.zeros((n_pad, 9), g.dtype)])
+    return g.T
+
+
+def _tile_numerators(rays, w_ref, cols):
+    """det/u/v/t numerators of this program's rays against one triangle
+    tile, as [rays, triangles] fields (exact-f32 FMAs)."""
+    ox, oy, oz, dx, dy, dz, mx, my, mz = rays
+    w = lambda r: w_ref[r, cols][None, :]
+    det = dx * w(0) + dy * w(1) + dz * w(2)
+    u_num = dx * w(3) + dy * w(4) + dz * w(5) + mx * w(6) + my * w(7) + mz * w(8)
+    v_num = (dx * w(9) + dy * w(10) + dz * w(11)
+             + mx * w(12) + my * w(13) + mz * w(14))
+    t_num = ox * w(15) + oy * w(16) + oz * w(17) + w(18)
+    return det, u_num, v_num, t_num
+
+
+def _accepts(det, u_num, v_num, t_num, ids, excl, t_eps):
+    """Returns (margin, tp, adet): a triangle is accepted iff margin >= 0.
+
+    The five accept conditions (|det|>eps, u>=0, v>=0, u+v<=det, t>t_eps —
+    reference Myobj.cpp:175-188, all scaled by |det|) fold into one
+    min-composed margin; the exclusion test (quirk Q8) rides as a select
+    to -1. Only the two eps thresholds move from strict > to >=, a
+    measure-zero change."""
+    s = jnp.where(det < 0.0, -1.0, 1.0)
+    adet = det * s
+    up = u_num * s
+    vp = v_num * s
+    tp = t_num * s
+    m = jnp.minimum(up, vp)
+    m = jnp.minimum(m, adet - (up + vp))
+    m = jnp.minimum(m, tp - t_eps * adet)
+    m = jnp.minimum(m, adet - DET_EPS)
+    m = jnp.where(ids[None, :] == excl[:, None], -1.0, m)
+    return m, tp, adet
+
+
+def _load_rays(g_ref, excl_ref, rt):
+    rows = pl.ds(pl.program_id(0) * rt, rt)
+    rays = tuple(g_ref[k, rows][:, None] for k in range(9))
+    return rows, rays, excl_ref[rows]
+
+
+def _kernel_nearest(g_ref, w_ref, ids_ref, excl_ref, idx_ref, *,
+                    nb: int, rt: int, tt: int, t_eps: float):
+    rows, rays, excl = _load_rays(g_ref, excl_ref, rt)
+
+    # Running best per (ray, lane) element, as the fraction tp / adet with
+    # its triangle tile: the comparison is division-free and no value
+    # crosses threads until the loop ends (a per-tile min + argmin costs
+    # warp shuffles on every step).
+    def body(b, carry):
+        bn, bd, bb = carry
+        cols = pl.ds(b * tt, tt)
+        m, tp, adet = _accepts(*_tile_numerators(rays, w_ref, cols),
+                               ids_ref[cols], excl, t_eps)
+        better = (m >= 0.0) & (tp * bd < bn * adet)
+        return (jnp.where(better, tp, bn), jnp.where(better, adet, bd),
+                jnp.where(better, b, bb))
+
+    init = (jnp.full((rt, tt), _BIG_T, jnp.float32),
+            jnp.ones((rt, tt), jnp.float32),
+            jnp.zeros((rt, tt), jnp.int32))
+    bn, bd, bb = jax.lax.fori_loop(0, nb, body, init)
+    # One reduction per ray: the smallest t, then the lowest triangle index
+    # among the lanes that hold it (the matmul path's tie order).
+    bt = bn / bd
+    t = jnp.min(bt, axis=1)
+    lane = jax.lax.broadcasted_iota(jnp.int32, (rt, tt), 1)
+    idx = jnp.min(jnp.where(bt == t[:, None], bb * tt + lane, _NO_IDX), axis=1)
+    idx_ref[rows] = jnp.where(t < _BIG_T, idx, _NO_HIT)
+
+
+def _kernel_occluded(g_ref, w_ref, ids_ref, excl_ref, tmax_ref, out_ref, *,
+                     nb: int, rt: int, tt: int, t_eps: float):
+    rows, rays, excl = _load_rays(g_ref, excl_ref, rt)
+    tmax = tmax_ref[rows][:, None]   # pre-scaled: t_max * (1 - margin)
+
+    def body(b, blocked):
+        cols = pl.ds(b * tt, tt)
+        m, tp, adet = _accepts(*_tile_numerators(rays, w_ref, cols),
+                               ids_ref[cols], excl, t_eps)
+        # Division-free: t < tmax  <=>  tp < tmax * adet (adet >= 0).
+        return blocked | ((m >= 0.0) & (tp < tmax * adet)).astype(jnp.int32)
+
+    blocked = jax.lax.fori_loop(0, nb, body, jnp.zeros((rt, tt), jnp.int32))
+    out_ref[rows] = jnp.max(blocked, axis=1)
+
+
+def _check_interpret(interpret: bool) -> None:
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the Triton intersect kernels compile only for a GPU; on "
+            f"{jax.default_backend()!r} pass interpret=True or use "
+            "impl='matmul'"
         )
-    nb = W.shape[0] // tile
-    Wb = W.reshape(nb, tile, 10, 4).transpose(0, 3, 2, 1)  # [nb,4,10,tile]
-    return Wb, tri_ids.reshape(nb, tile), W
 
 
-def _common_specs(nb, tile):
-    col = lambda i: (i, 0)
-    in_specs = [
-        pl.BlockSpec((RAY_TILE, 10), col, memory_space=pltpu.VMEM),
-        pl.BlockSpec(
-            (nb, 4, 10, tile), lambda i: (0, 0, 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        pl.BlockSpec((nb, tile), lambda i: (0, 0), memory_space=pltpu.VMEM),
-        pl.BlockSpec((RAY_TILE, 1), col, memory_space=pltpu.VMEM),
-    ]
-    return col, in_specs
-
-
-def _pad_rays(g, extras, pad_vals):
-    padN = (-g.shape[0]) % RAY_TILE
-    if padN:
-        g = jnp.concatenate([g, jnp.zeros((padN, 10), g.dtype)], axis=0)
-        extras = [
-            jnp.concatenate([e, jnp.full((padN,) + e.shape[1:], v, e.dtype)])
-            for e, v in zip(extras, pad_vals)
-        ]
-    return g, extras
-
-
-@functools.partial(jax.jit, static_argnames=("t_eps", "interpret", "mode"))
-def _call_nearest(ro, rd, W, tri_ids, exclude_id, t_eps: float, interpret: bool,
-                  mode: str, lo=None, hi=None):
+def _launch(kernel, ro, rd, W, tri_ids, exclude_id, extra, out_dtypes,
+            t_eps, interpret):
+    """Shared pallas_call plumbing: pads rays and triangles to their tiles,
+    detaches every input, returns the unpadded outputs."""
+    rt, tt, warps = TILES
+    sg = jax.lax.stop_gradient
     N = ro.shape[0]
-    g = ray_features(ro, rd)
-    tile = _tri_tile(W.shape[0], mode, cull=lo is not None)
-    Wb, idb, Wflat = _pack_blocks(W, tri_ids, tile)
-    nb = Wb.shape[0]
-    cull = lo is not None and nb > 1
-    g, (excl, ro_p, rd_p) = _pad_rays(g, [exclude_id, ro, rd], [NO_HIT, 0.0, 0.0])
-    Np = g.shape[0]
+    n_pad = (-N) % rt
+    wk, ids = _pack_tris(sg(W), tri_ids, tt)
+    g = _ray_rows(sg(ro), sg(rd), n_pad)
+    pad1 = lambda x, v: jnp.concatenate([x, jnp.full((n_pad,), v, x.dtype)])
+    excl = pad1(exclude_id.astype(jnp.int32), NO_HIT)
+    extra = [pad1(sg(x), 0) for x in extra]
+    outs = pl.pallas_call(
+        functools.partial(kernel, nb=wk.shape[1] // tt, rt=rt, tt=tt,
+                          t_eps=t_eps),
+        grid=((N + n_pad) // rt,),
+        out_shape=[jax.ShapeDtypeStruct((N + n_pad,), d) for d in out_dtypes],
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=warps,
+                                                 num_stages=1),
+        interpret=interpret,
+        name=kernel.__name__.lstrip("_"),
+    )(g, wk, ids, excl, *extra)
+    return [o[:N] for o in outs]
 
-    out_shape = [
-        jax.ShapeDtypeStruct((Np, 1), jnp.float32),
-        jax.ShapeDtypeStruct((Np, 1), jnp.int32),
-    ]
-    if cull:
-        col, in_specs = _common_specs(nb, tile)
-        args = [g, Wb, idb, excl[:, None]]
-        lo_t, hi_t = _tile_aabbs(lo, hi, tile)
-        order, te = _cull_masks(ro_p, rd_p, lo_t, hi_t, jnp.full((Np,), _BIG_T))
-        cap = _scene_exit_cap(ro_p, rd_p, lo_t, hi_t, t_eps)
-        in_specs = in_specs + [
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # order [nrt, nb]
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # te    [nrt, nb]
-            pl.BlockSpec((RAY_TILE, 1), col, memory_space=pltpu.VMEM),  # cap
-        ]
-        args += [order, te, cap[:, None]]
-        t, idx = pl.pallas_call(
-            functools.partial(
-                _kernel_nearest, nb=nb, t_eps=t_eps, mode=mode, cull=True
-            ),
-            grid=(Np // RAY_TILE,),
-            in_specs=in_specs,
-            out_specs=[
-                pl.BlockSpec((RAY_TILE, 1), col, memory_space=pltpu.VMEM),
-                pl.BlockSpec((RAY_TILE, 1), col, memory_space=pltpu.VMEM),
-            ],
-            out_shape=out_shape,
-            interpret=interpret,
-        )(*args)
-    else:
-        # Streamed: W tiles flow through VMEM one block at a time (the
-        # minor grid dim), so triangle count is HBM-bounded — the resident
-        # form OOMs scoped VMEM beyond ~16k triangles in mxu_fast.
-        w_args, w_specs = _stream_w_inputs(Wb, tile, mode)
-        ray_col = lambda i, b: (i, 0)
-        t, idx = pl.pallas_call(
-            functools.partial(_kernel_nearest_s, t_eps=t_eps, mode=mode),
-            grid=(Np // RAY_TILE, nb),
-            in_specs=[
-                pl.BlockSpec((RAY_TILE, 10), ray_col, memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, tile), lambda i, b: (b, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((RAY_TILE, 1), ray_col, memory_space=pltpu.VMEM),
-                *w_specs,
-            ],
-            out_specs=[
-                pl.BlockSpec((RAY_TILE, 1), ray_col, memory_space=pltpu.VMEM),
-                pl.BlockSpec((RAY_TILE, 1), ray_col, memory_space=pltpu.VMEM),
-            ],
-            out_shape=out_shape,
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(g, idb[:, None, :], excl[:, None], *w_args)
 
-    t = t[:N, 0]
-    valid = idx[:N, 0] >= 0   # cull path caps t at scene exit; id is truth
-    idx = jnp.maximum(idx[:N, 0], 0)
-
-    # Winner recovery in XLA: one gather + a 40-flop re-evaluation. t is
-    # ALSO taken from this exact-f32 re-evaluation rather than the kernel's
-    # running min, so approximate dot modes (mxu_fast) only affect which
-    # triangle wins / accept flips on a grazing fringe — never the reported
-    # hit parameters.
-    tid = idb.reshape(-1)[idx]
-    Wwin = Wflat[idx]                                  # [N,10,4]
-    vals = jnp.einsum(
-        "nf,nfk->nk", g[:N], Wwin, precision=jax.lax.Precision.HIGHEST
-    )
+@functools.partial(jax.jit, static_argnames=("t_eps", "interpret"))
+def _nearest(ro, rd, W, tri_ids, exclude_id, t_eps: float, interpret: bool):
+    (idx,) = _launch(_kernel_nearest, ro, rd, W, tri_ids, exclude_id, [],
+                     [jnp.int32], t_eps, interpret)
+    valid = idx >= 0
+    # Winner recovery in XLA: one gather + an exact re-evaluation of the
+    # winner's numerators. Gradients flow through ro/rd here, as they do
+    # through intersect_matmul's take_along_axis. Padding never wins.
+    idx = jnp.maximum(idx, 0)
+    vals = jnp.einsum("nf,nfk->nk", ray_features(ro, rd), W[idx],
+                      precision=jax.lax.Precision.HIGHEST)
     det = vals[:, 0]
     inv_det = 1.0 / jnp.where(jnp.abs(det) > 0, det, 1.0)
-    u = vals[:, 1] * inv_det
-    v = vals[:, 2] * inv_det
-    t = vals[:, 3] * inv_det
     return Hit(
-        t=jnp.where(valid, t, BIG_T),
-        tri_id=jnp.where(valid, tid, NO_HIT),
-        u=jnp.where(valid, u, 0.0),
-        v=jnp.where(valid, v, 0.0),
+        t=jnp.where(valid, vals[:, 3] * inv_det, BIG_T),
+        tri_id=jnp.where(valid, tri_ids[idx], NO_HIT),
+        u=jnp.where(valid, vals[:, 1] * inv_det, 0.0),
+        v=jnp.where(valid, vals[:, 2] * inv_det, 0.0),
         valid=valid,
     )
 
 
-@functools.partial(jax.jit, static_argnames=("t_eps", "interpret", "mode"))
-def _call_occluded(ro, rd, W, tri_ids, exclude_id, t_max, t_eps: float,
-                   interpret: bool, mode: str, lo=None, hi=None):
-    N = ro.shape[0]
-    g = ray_features(ro, rd)
-    tile = _tri_tile(W.shape[0], mode, cull=lo is not None)
-    Wb, idb, _ = _pack_blocks(W, tri_ids, tile)
-    nb = Wb.shape[0]
-    cull = lo is not None and nb > 1
-    g, (excl, tmax, ro_p, rd_p) = _pad_rays(
-        g, [exclude_id, t_max.astype(jnp.float32), ro, rd], [NO_HIT, 0.0, 0.0, 0.0]
-    )
-    Np = g.shape[0]
-
-    if cull:
-        col, in_specs = _common_specs(nb, tile)
-        in_specs = in_specs + [
-            pl.BlockSpec((RAY_TILE, 1), col, memory_space=pltpu.VMEM)
-        ]
-        args = [g, Wb, idb, excl[:, None], tmax[:, None]]
-        lo_t, hi_t = _tile_aabbs(lo, hi, tile)
-        # Shadow segments are bounded: the tile's max t_max caps the swept
-        # interval, culling tiles beyond the lights.
-        order, te = _cull_masks(ro_p, rd_p, lo_t, hi_t, tmax)
-        in_specs = in_specs + [
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # order [nrt, nb]
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # te    [nrt, nb]
-        ]
-        args += [order, te]
-        out = pl.pallas_call(
-            functools.partial(
-                _kernel_occluded, nb=nb, t_eps=t_eps, mode=mode, cull=True
-            ),
-            grid=(Np // RAY_TILE,),
-            in_specs=in_specs,
-            out_specs=[pl.BlockSpec((RAY_TILE, 1), col, memory_space=pltpu.VMEM)],
-            out_shape=[jax.ShapeDtypeStruct((Np, 1), jnp.int32)],
-            interpret=interpret,
-        )(*args)[0]
-    else:
-        # Streamed variant — see _call_nearest.
-        w_args, w_specs = _stream_w_inputs(Wb, tile, mode)
-        ray_col = lambda i, b: (i, 0)
-        out = pl.pallas_call(
-            functools.partial(_kernel_occluded_s, t_eps=t_eps, mode=mode),
-            grid=(Np // RAY_TILE, nb),
-            in_specs=[
-                pl.BlockSpec((RAY_TILE, 10), ray_col, memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 1, tile), lambda i, b: (b, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((RAY_TILE, 1), ray_col, memory_space=pltpu.VMEM),
-                *w_specs,
-                pl.BlockSpec((RAY_TILE, 1), ray_col, memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((RAY_TILE, 1), ray_col, memory_space=pltpu.VMEM)
-            ],
-            out_shape=[jax.ShapeDtypeStruct((Np, 1), jnp.int32)],
-            compiler_params=pltpu.CompilerParams(
-                dimension_semantics=("parallel", "arbitrary"),
-            ),
-            interpret=interpret,
-        )(g, idb[:, None, :], excl[:, None], *w_args, tmax[:, None])[0]
-    return out[:N, 0] > 0
+@functools.partial(jax.jit, static_argnames=("t_eps", "interpret"))
+def _occluded(ro, rd, W, tri_ids, exclude_id, t_max, t_eps: float,
+              interpret: bool):
+    (out,) = _launch(_kernel_occluded, ro, rd, W, tri_ids, exclude_id,
+                     [t_max.astype(jnp.float32)], [jnp.int32], t_eps,
+                     interpret)
+    return out > 0
 
 
-def intersect_pallas(ro, rd, W, tri_ids, exclude_id=None, t_eps=T_EPS,
-                     mode=None, aabb_lo=None, aabb_hi=None):
-    """aabb_lo/hi (per-triangle, morton-sorted order — ops.intersect.TriAccel)
-    enable conservative tri-tile culling; None = test every tile."""
-    N = ro.shape[0]
+def intersect_pallas(ro, rd, W, tri_ids, exclude_id=None, t_eps=T_EPS, *,
+                     interpret: bool = False) -> Hit:
+    """Nearest hit of N rays against W ([T, 10, 4], pack_tri_matrix)."""
+    _check_interpret(interpret)
     if exclude_id is None:
-        exclude_id = jnp.full((N,), NO_HIT, jnp.int32)
-    interpret = jax.default_backend() == "cpu"
-    return _call_nearest(ro, rd, W, tri_ids, exclude_id, float(t_eps),
-                         interpret, mode or _default_mode(), aabb_lo, aabb_hi)
+        exclude_id = jnp.full((ro.shape[0],), NO_HIT, jnp.int32)
+    return _nearest(ro, rd, W, tri_ids, exclude_id, float(t_eps), interpret)
 
 
-def occluded_pallas(ro, rd, W, tri_ids, exclude_id, t_max, t_eps=T_EPS,
-                    mode=None, aabb_lo=None, aabb_hi=None):
-    """True where some accepted triangle lies closer than t_max (pre-scaled
+def occluded_pallas(ro, rd, W, tri_ids, exclude_id, t_max, t_eps=T_EPS, *,
+                    interpret: bool = False):
+    """[N] bool: some accepted triangle lies closer than t_max (pre-scaled
     by the caller's margin)."""
-    interpret = jax.default_backend() == "cpu"
-    return _call_occluded(
-        ro, rd, W, tri_ids, exclude_id, t_max, float(t_eps), interpret,
-        mode or _default_mode(), aabb_lo, aabb_hi
-    )
+    _check_interpret(interpret)
+    return _occluded(ro, rd, W, tri_ids, exclude_id, t_max, float(t_eps),
+                     interpret)

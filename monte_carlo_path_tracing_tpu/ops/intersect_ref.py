@@ -2,7 +2,7 @@
 
 Replaces the reference's uniform-grid 3D-DDA traversal + Cramer's-rule
 triangle test (closet_ray_intersect Myobj.cpp:334-474, intersect_with_triangle
-Myobj.cpp:165-192) with an all-pairs formulation that is TPU-native:
+Myobj.cpp:165-192) with a dense, divergence-free all-pairs formulation:
 
 **The matmul form.** Moller-Trumbore for ray (ro, rd) against triangle
 (v0, e1, e2) reduces to four bilinear forms in the per-ray feature vector
@@ -13,13 +13,12 @@ g = [ro, rd, m, 1] (m = ro x rd, the ray's Plucker moment):
     v_num = -m . e1 + rd . (e1 x v0)         (v * det)
     t_num = ro . n - v0 . n,  n = e1 x e2    (t * det)
 
-so intersecting N rays against T triangles is ONE [N,10] @ [10,4T] matmul —
-MXU work at hundreds of TFLOP/s — followed by an elementwise accept test and
-a min-t reduction. The Pallas kernel (intersect_pallas.py) streams triangle
-tiles through VMEM; this module holds (a) `intersect_oracle`, a direct
-broadcast Moller-Trumbore used as the correctness oracle, and (b)
-`intersect_matmul`, the same matmul math in plain jnp (the non-Pallas
-production path — XLA tiles it onto the MXU by itself).
+so intersecting N rays against T triangles is ONE [N,10] @ [10,4T] matmul
+followed by an elementwise accept test and a min-t reduction. The Pallas
+kernels (intersect_pallas.py) fuse all three on the GPU; this module holds
+(a) `intersect_oracle`, a direct broadcast Moller-Trumbore used as the
+correctness oracle, and (b) `intersect_matmul`, the same matmul math in
+plain jnp at Precision.HIGHEST (the CPU path and the kernels' reference).
 
 Accept rules mirror the reference (Myobj.cpp:175-188): |det|>eps, u>=0, v>=0,
 u+v<=1, t>t_eps, plus self-exclusion by triangle id (quirk Q8, Myobj.cpp:417)

@@ -1,33 +1,23 @@
-"""MXU-friendly stable counting/radix sort for lane permutation keys.
+"""Matmul-form stable counting/radix sort for lane permutation keys.
 
-Why this exists: the regen renderer wants to reorder wavefront lanes by a
-small (direction, morton) coherence key every iteration so the tri-tile
-culling kernels (ops/intersect_pallas.py) see coherent ray tiles — the TPU
-analogue of the reference's per-ray grid walk locality (Myobj.cpp:334-474).
-Round 2 attributed a ~15 ms/iteration sort cost to XLA's bitonic argsort
-and this module was built to beat it. The round-3 measurement
-(docs/tpu_sort_cull.json) falsified both that attribution and this
-module's advantage: ``jnp.argsort`` on 65k int32 keys costs **1.2 ms** on
-the current toolchain, this radix sort costs 11.5 ms for 24-bit keys
-(~3.3 ms per 8-bit pass — the scatter-apply between passes dominates),
-and the bulk of the old 15 ms was the *application* of the permutation to
-the 13 lane-state arrays, not the argsort. ``regen.sort_lanes`` therefore
-uses ``jnp.argsort``; this module stays as a correct, tested negative
-result (pinned equivalent to ``argsort(stable=True)`` by tests/test_sort.py).
+A counting sort whose stable within-block rank is a strict-lower-
+triangular MATMUL (one [B,B] x [nblk,B,K] einsum with exact small-integer
+arithmetic) instead of a serial scan:
 
-The TPU-native construction, for the record: a counting sort whose stable
-within-block rank is a strict-lower-triangular MATMUL (one
-[B,B] x [nblk,B,K] einsum on the MXU with exact small-integer arithmetic)
-instead of a serial scan:
-
-  - one-hot        oh[i, k]   = [key_i == k]                  (VPU compare)
+  - one-hot        oh[i, k]   = [key_i == k]                  (compare)
   - block hist     h[b, k]    = sum_i oh[b*B+i, k]            (reduce)
-  - in-block rank  r[b, i, k] = sum_{j<i} oh[b*B+j, k]        (MXU matmul)
+  - in-block rank  r[b, i, k] = sum_{j<i} oh[b*B+j, k]        (matmul)
   - position_i     = excl_cumsum_k(tot)[k_i]                  (tiny cumsum)
                    + excl_cumsum_b(h)[b_i, k_i] + r[b_i, i mod B, k_i]
 
 Counts are <= B = 256 so bf16 one-hots with f32 accumulation are exact.
 Multi-byte keys compose by LSD radix (stability makes passes compose).
+
+It was built as a faster replacement for ``jnp.argsort`` in the regen
+lane sort and measured slower than it; ``regen.sort_lanes`` uses
+``jnp.argsort``. Nothing in the renderer calls this module. It stays as a
+tested alternative, pinned equivalent to ``argsort(stable=True)`` by
+tests/test_sort.py.
 """
 
 from __future__ import annotations

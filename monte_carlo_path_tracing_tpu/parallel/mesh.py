@@ -1,14 +1,16 @@
 """Device-mesh construction and sharding helpers.
 
 The reference is single-threaded (SURVEY.md §2 "Parallelism inventory":
-none of DP/TP/PP/EP, no NCCL/MPI); all parallelism here is designed
-TPU-first. The renderer's natural axes:
+none of DP/TP/PP/EP, no NCCL/MPI). The renderer's natural axes:
 
   - ``tiles``: pixels/ray batches sharded across devices (data parallelism —
     rays are embarrassingly parallel, main.cpp:557-578).
   - ``spp``: independent sample streams of the *same* pixels sharded across
     devices; radiance is averaged with a ``psum`` over the axis (the
-    renderer's gradient-accumulation analogue, riding ICI).
+    renderer's gradient-accumulation analogue).
+
+On a multi-GPU host every card reaches every other over NVLink at the same
+rate, so the mesh shape follows the algorithm alone.
 
 Multi-host runs initialise jax.distributed and use the same mesh over the
 global device set; tests use an 8-device CPU mesh
@@ -52,8 +54,8 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 
 def init_distributed_if_needed() -> None:
-    """Multi-host bring-up — the TPU analogue of the MPI/NCCL init the
-    reference never had (it is single-process, SURVEY.md §5).
+    """Multi-host bring-up — the MPI/NCCL init the reference never had (it
+    is single-process, SURVEY.md §5).
 
     MUST be called before anything touches the jax backend: jax.devices()
     or jax.process_count() initialize it, after which
@@ -63,7 +65,7 @@ def init_distributed_if_needed() -> None:
       - explicit: JAX_COORDINATOR_ADDRESS (or COORDINATOR_ADDRESS) +
         JAX_NUM_PROCESSES + JAX_PROCESS_ID — used by the multi-process
         CPU-mesh test (tests/test_multiprocess.py) and manual launches;
-      - auto: cloud TPU pod / SLURM environments, where
+      - auto: SLURM multi-task allocations, where
         jax.distributed.initialize() self-configures.
 
     Single-process runs (none of the variables set) are untouched. Calling
@@ -83,7 +85,7 @@ def init_distributed_if_needed() -> None:
     slurm_multi = (
         "SLURM_JOB_ID" in env and int(env.get("SLURM_NTASKS", "1") or 1) > 1
     )
-    auto = slurm_multi or "MEGASCALE_COORDINATOR_ADDRESS" in env
+    auto = slurm_multi
     if addr is None and not auto:
         return
     kwargs = {}

@@ -60,8 +60,7 @@ def render_image_regen(
 
     Long renders are split into multiple device launches of at most
     `max_samples_per_launch` paths: a single multi-minute while_loop
-    execution can trip device-side execution watchdogs (observed on v5e),
-    and per-launch splitting also gives progressive accumulation for free.
+    execution can trip device-side execution watchdogs, and per-launch splitting also gives progressive accumulation for free.
     Streams are keyed by global (spp index, pixel id) — `spp0` rides into
     each launch — so the image is invariant to the launch split.
 

@@ -6,7 +6,7 @@ a direction is sampled uniformly inside it by Arvo's (1995, §5.2) sub-area
 inversion. The returned pdf is the **solid-angle density**
 p(w) = L_i.sum() / sum_k(weight_k) — constant per triangle (Mylight.cpp:317).
 
-TPU-native form: the per-(ray, light-tri) projection is one batched [N, L]
+Batched form: the per-(ray, light-tri) projection is one batched [N, L]
 elementwise pass (culls as masks, acos chains clamped for f32 — SURVEY.md §7
 hard part 3); the reference's O(L) *loop per shading point* (the reason its
 spherical-sampling render took ~1300 min, README.md:356-360) becomes pure
@@ -118,8 +118,8 @@ def solid_angle_fast(x1, n, pa, pb, pc, nl):
 
 def light_table(scene: Scene) -> jnp.ndarray:
     """[L,16] packed per-light-triangle record: pa(3) pb(3) pc(3) nl(3)
-    emission(3) l_sum(1). One gather per lane instead of ~6 (TPU gathers
-    are slow; same packing trick as integrator.common.build_tri_table).
+    emission(3) l_sum(1). One gather per lane instead of ~6 (same
+    packing trick as integrator.common.build_tri_table).
     Loop-invariant, so XLA hoists the build out of bounce loops; emission
     stays differentiable (plain gathers/concat from the material table)."""
     pa, pb, pc = scene.light_verts()
@@ -156,6 +156,7 @@ def _project_for_warp(x1, n, pa, pb, pc):
     return A, B, C, alpha, cos_c, sA
 
 
+@jax.named_scope("arvo_select")
 def prepare(scene: Scene, x1: jnp.ndarray, n: jnp.ndarray):
     """Batched 'prepared_for_lights_spherical_triangle_sampling'
     (Mylight.cpp:322-422): weights[N,L] and weights_sum[N].
@@ -251,36 +252,23 @@ def _arvo_warp(key, A, B, C, alpha, cos_c, sA):
     return vm.normalize(P)
 
 
-def sample(
-    key: jax.Array, scene: Scene, x1: jnp.ndarray, n: jnp.ndarray,
-    fused: bool = False,
-):
+def sample(key: jax.Array, scene: Scene, x1: jnp.ndarray, n: jnp.ndarray):
     """Batched 'lights_spherical_triangle_sampling' (Mylight.cpp:424-482).
 
     Returns (LightSample, weights_sum[N]). pdf is a solid-angle density;
     rays with no projectable light triangle get the reference's dummy
     below-surface sample with pdf 1 and valid=False (Mylight.cpp:427-430).
-
-    ``fused=True`` runs projection + pick as one Pallas kernel
-    (ops/arvo_pallas.py — the [N, L] field never touches HBM; forward
-    renderers only, the kernel is not differentiable). Both paths consume
-    the SAME uniform from k_sel; picks agree except within f32 rounding of
-    CDF boundaries (see the kernel's module docstring).
     """
     k_sel, k_warp = rng.fold_in(key, 0), rng.fold_in(key, 1)
-    if fused:
-        from monte_carlo_path_tracing_tpu.ops.arvo_pallas import arvo_select
-
-        u = rng.uniform(k_sel, (x1.shape[0],))
-        lidx, weights_sum = arvo_select(scene, x1, n, u)
-    else:
-        weights, weights_sum = prepare(scene, x1, n)
-        # Inverse-CDF pick (one uniform per lane; all-zero rows are flagged
-        # invalid via ``has`` below, whatever index they land on).
+    weights, weights_sum = prepare(scene, x1, n)
+    # Inverse-CDF pick (one uniform per lane; all-zero rows are flagged
+    # invalid via ``has`` below, whatever index they land on).
+    with jax.named_scope("arvo_select"):
         lidx = rng.pick_weighted(k_sel, weights, x1.shape[0], weights_sum)
     return sample_from_pick(k_warp, scene, x1, n, lidx, weights_sum), weights_sum
 
 
+@jax.named_scope("arvo_warp")
 def sample_from_pick(
     k_warp: jax.Array,
     scene: Scene,

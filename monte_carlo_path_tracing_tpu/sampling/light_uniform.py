@@ -8,7 +8,7 @@ Three-stage hierarchical draw, fully batched:
 
 Stages 1-2 collapse into a single static per-light-triangle categorical
 p_sel[l] = P(class) * area_l / area(class) precomputed from the scene — the
-TPU form of the reference's two chained std::discrete_distribution draws.
+batched form of the reference's two chained std::discrete_distribution draws.
 The returned ``prob`` is an **area-measure density** p = p_sel / area
 (sampledLightPoint.prob, Mylight.cpp:156-158).
 """

@@ -239,10 +239,10 @@ def author_veach_mis(
     ``tess`` scales the quad-grid tessellation density (triangle count of
     the flat surfaces grows ~tess^2) and ``sphere_subdiv`` the emitter
     icospheres — same geometry at any setting, so renders are equal-work
-    comparisons across scales. Used by scripts/tpu_scale_crossover.py to
-    measure the acceleration-structure crossover (the capability the
-    reference's uniform grid exists for, Myobj.cpp:110-162): tess 1/1.8/
-    3.2/5.9 gives ~3k/10k/30k/100k triangles.
+    comparisons across scales — the workload for measuring where an
+    acceleration structure starts to pay (the capability the reference's
+    uniform grid exists for, Myobj.cpp:110-162): tess 1/1.8/3.2/5.9 gives
+    ~3k/10k/30k/100k triangles.
     ``lamp_y`` / ``radii_scale`` move and scale the emitter row: the
     default layout hangs the emitters at y=8 so the *un-bugged* camera
     frames the classic arrangement; the golden-compat variant
@@ -343,9 +343,7 @@ def author_bathroom(tess: float = 1.9) -> Dict[str, str]:
     the same cg23 format: a tiled room with a large mirror, a tub, a
     counter with a spherical basin, ornament spheres, and a ceiling panel
     + warm window emitter. At the default tessellation the scene lands at
-    ~28k triangles — inside the sort+cull window of the accel='auto'
-    policy (docs/tpu_scale_crossover.json), so the bundled scenes cover
-    both sides of the measured crossover."""
+    ~28k triangles, ten times the other bundled scenes."""
     w = MeshWriter()
     gq = lambda n: max(1, round(n * tess))
     # Room shell: x in [0,4], y in [0,2.6], z in [0,3]. Inward normals.

@@ -2,8 +2,8 @@
 
 Covers the reference's startup pipeline (SURVEY.md §3.1): OBJ/MTL parse →
 XML lights parse → gather_light_triangles (Mylight.cpp:32-100) → per-facet
-attribute caches (Myobj.cpp:626-709). There is no grid build — the TPU
-intersection kernel is a tiled all-pairs test (see ops/), so the uniform-grid
+attribute caches (Myobj.cpp:626-709). There is no grid build — the default
+intersection engine is a tiled all-pairs test (see ops/), so the uniform-grid
 accelerator (Myobj.cpp:78-162, quirk Q7) has no counterpart here.
 """
 

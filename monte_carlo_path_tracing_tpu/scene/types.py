@@ -1,6 +1,6 @@
 """Scene, camera and material pytrees (SoA device arrays).
 
-The TPU-native replacement for the reference's global ``Myobj``/``Mylight``
+The batched replacement for the reference's global ``Myobj``/``Mylight``
 objects (Myobj.h:44-90, Mylight.h:10-120): instead of tinyobj arrays + maps
 memoised per triangle, the whole scene is a flat struct-of-arrays pytree that
 jits, vmaps and shards. Triangles are identified by a single flat index

@@ -72,30 +72,19 @@ class RenderConfig:
 
     # Wavefront / performance
     ray_chunk: int = 1 << 16    # rays in flight per wavefront batch
-    use_pallas: Optional[bool] = None   # None = auto (pallas on TPU, jnp elsewhere)
-    # Pallas intersect dot mode: None = kernel default (exact f32 VPU);
-    # "vpu" / "mxu" are exact f32, "mxu_fast" runs the coefficient dots as
-    # 3-pass bf16x3 on the MXU (~2^-16 relative error, roughly half-f32
-    # mantissa coverage; accept decisions can flip deterministically on a
-    # ~1e-5-relative fringe of grazing cases — validated on full renders).
-    dot_mode: Optional[str] = None
-    # Acceleration structure: "auto" (default — all-pairs kernels, with
-    # lane-sort + tri-tile culling switched in by triangle count per the
-    # measured crossover, ops/intersect.py::auto_policy /
-    # docs/tpu_scale_crossover.json), "all_pairs" (plain MXU brute force),
-    # or "grid" (the reference's uniform grid + 3D-DDA, C10/C12 — kept
-    # for parity; measured 100-600x slower than all-pairs on TPU at every
-    # scale, so auto never picks it).
+    # Intersect implementation: None = auto (ops/intersect.py::
+    # impl_for_platform — the Pallas kernels on a GPU, jnp on the CPU),
+    # True = the Pallas kernels, False = jnp (intersect_matmul).
+    use_pallas: Optional[bool] = None
+    # Acceleration structure: "auto" and "all_pairs" (the default all-pairs
+    # test, identical today), or "grid" (the reference's uniform grid +
+    # 3D-DDA, C10/C12 — kept for parity; auto never picks it).
     accel: str = "auto"
     grid_n0: int = 100_000      # grid target cell count (main.cpp:520)
     # Regen renderer: reorder lanes by (direction cone, origin morton)
-    # each iteration so kernel ray tiles are coherent and the pallas
-    # tri-tile culling bites. Pure permutation — the estimate is unchanged
-    # (streams are keyed by (sample, pixel), not lane). OFF by default:
-    # the round-3 decomposition (docs/tpu_sort_cull.json) measured culling
-    # at ~1.5 ms/iter saved vs ~5 ms sort cost at the bundled scenes'
-    # scale; the knob wins only on naturally coherent batches / larger
-    # scenes.
+    # each iteration so ray tiles are coherent. Pure permutation — the
+    # estimate is unchanged (streams are keyed by (sample, pixel), not
+    # lane). Opt-in: the all-pairs intersect gains nothing from it.
     ray_sort: bool = False
     # Sort every k-th regen iteration (coherence decays slowly as lanes die
     # and regenerate; k>1 amortizes the sort). 1 = every iteration.
@@ -111,13 +100,6 @@ class RenderConfig:
     # estimator mis/brdf, no jitter, no blocker compat); True forces it
     # (validate() raises if ineligible); False forces the uncached loop.
     primary_cache: Optional[bool] = None
-    # Regen renderer: fuse the Arvo [N, L] projection + triangle pick into
-    # one Pallas kernel (ops/arvo_pallas.py) — the [N, L] field never
-    # touches HBM. None = auto (on for TPU, off elsewhere so CPU tests pin
-    # the jnp path). The pick can differ from the jnp path's by one index
-    # when the uniform lands within f32 rounding of a CDF boundary
-    # (summation-order difference; same fringe class as mxu_fast).
-    fused_arvo: Optional[bool] = None
 
     # Distribution
     mesh_shape: Tuple[int, ...] = ()    # () = single device
@@ -145,10 +127,6 @@ class RenderConfig:
             raise ValueError(
                 "mis_blocker_compat reproduces the reference's full MIS "
                 "recursion and requires ref_mis_weights=True"
-            )
-        if self.dot_mode not in (None, "vpu", "mxu", "mxu_fast"):
-            raise ValueError(
-                f"dot_mode must be None/'vpu'/'mxu'/'mxu_fast', got {self.dot_mode}"
             )
         if self.ray_sort_every < 1:
             raise ValueError("ray_sort_every must be >= 1")

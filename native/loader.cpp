@@ -1,7 +1,7 @@
 // Native scene loader: fast OBJ/MTL tokenizer exposed through a C ABI.
 //
 // The reference vendors tiny_obj_loader.h (3.5k LoC, C++) for ingestion
-// (Myobj.cpp:10-28). This is the TPU framework's native equivalent: a
+// (Myobj.cpp:10-28). This is the framework's native equivalent: a
 // single-pass parser for the cg23 subset (v/vn/f/usemtl/mtllib + newmtl/
 // Kd/Ks/Ns) that fills caller-allocated flat arrays, bound from Python via
 // ctypes (scene/native_loader.py). The pure-Python parser in

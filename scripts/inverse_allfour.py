@@ -9,7 +9,7 @@ recovered both. The bathroom scene closes the gap structurally: nearly
 every material carries BOTH a visible kd (0.15-0.75) and a real specular
 lobe (ks 0.05-0.85, ns 20-8000), so one 4-family joint optimization sees
 signal for every family at once. Same machinery as
-scripts/tpu_inverse_joint.py (identical perturbation, probe, optimizer).
+scripts/inverse_joint.py (identical perturbation, probe, optimizer).
 
 Writes docs/inverse_allfour.json and docs/img/inverse_*_bathroom.png.
 Env: INV_STEPS (1500), INV_RAYS (4096), INV_LR (0.06), INV_WH (64x36),
@@ -23,7 +23,7 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tpu_inverse_joint import run_scene  # noqa: E402
+from inverse_joint import run_scene  # noqa: E402
 
 HERE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OUT = os.path.join(HERE, "docs", "inverse_allfour.json")
@@ -45,7 +45,7 @@ def main():
     # triangle's error by its primary-hit count from the inverse camera.
     run["coverage_note"] = (
         "unweighted per-triangle MAE over masks incl. triangles with ~zero "
-        "frame coverage; see tpu_inverse_joint.py analysis for the same "
+        "frame coverage; see inverse_joint.py analysis for the same "
         "effect on veach kd"
     )
     out = {

@@ -63,7 +63,6 @@ def preview(scene, materials, path, tone=(380.0, 0.25)):
 
 def grad_probe(scene, init, cfg, rays=4096, batches=16, loss_clip=5.0):
     """RMS latent-gradient per material family at the init point."""
-    cfg = cfg.replace(use_pallas=False)
     cam = scene.camera
     n_pix = cam.width * cam.height
     squash = lambda x: x / (1.0 + x / loss_clip)

@@ -5,7 +5,7 @@ item 8, first suggestion: "sum the loss over both scenes").
 A single Adam run over the concatenated latent materials of cornell AND
 veach-mis, with the loss summed across the two scenes every step (same
 two-stream product loss, squash, schedule and perturbation as
-scripts/tpu_inverse_joint.py / diff/inverse.py::recover_materials). The
+scripts/inverse_joint.py / diff/inverse.py::recover_materials). The
 r4 artifact recovered kd on cornell and ks/ns/em on veach in SEPARATE
 runs; this artifact shows one optimizer recovering every family
 simultaneously — no family trades off against another when optimized
@@ -44,9 +44,7 @@ def _setup(name, w, h):
     scene = load_scene(os.path.join(HERE, "scenes", name, f"{name}.obj"))
     scene = dataclasses.replace(
         scene, camera=dataclasses.replace(scene.camera, width=w, height=h))
-    # differentiation path: matmul intersect (pallas has no vjp)
-    cfg = RenderConfig(spp=1, estimator="mis", max_depth=3, seed=0,
-                       use_pallas=False)
+    cfg = RenderConfig(spp=1, estimator="mis", max_depth=3, seed=0)
     m = scene.materials
     init = dataclasses.replace(
         m,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python
-"""TPU: official bench refresh + showcase renders for docs."""
-import os
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-import dataclasses, sys
+"""Showcase renders for docs/img (veach 640x360x256spp, cornell 512^2x512spp)."""
+import dataclasses, os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+from monte_carlo_path_tracing_tpu.utils.compile_cache import enable_compile_cache
+enable_compile_cache()
 import jax
 from monte_carlo_path_tracing_tpu.scene import load_scene
 from monte_carlo_path_tracing_tpu.utils.config import RenderConfig
@@ -32,4 +32,3 @@ r2 = render_image_regen(sc2, cfg2, lanes=1<<16)
 print(f"cornell 512x512x512spp: {r2.seconds:.1f}s rays={r2.rays_traced/1e6:.0f}M "
       f"({r2.rays_traced/r2.seconds/1e6:.2f} Mrays/s)", flush=True)
 film.write_image(os.path.join(here, "docs/img/cornell_512.png"), r2.image, 40.0, 0.45)
-print("cache entries:", len(os.listdir("/root/.jax_cache")) if os.path.isdir("/root/.jax_cache") else 0, flush=True)

@@ -1,41 +1,34 @@
-"""accel='auto' dispatch policy (ops/intersect.py::auto_policy).
+"""Intersect dispatch (ops/intersect.py::impl_for_platform) and accel='auto'.
 
-The thresholds come from the measured crossover on the veach tessellation
-variants (docs/tpu_scale_crossover.json): plain all-pairs wins at 3k/10k
-triangles, sort+cull crosses over near ~30k, and the culled resident
-kernel's whole-W VMEM residency caps out near ~100k. The reference's
-uniform grid never wins on TPU, so auto never picks it.
+The platform picks the implementation: the Triton-route Pallas kernels on a
+GPU, the jnp matmul form on the CPU, and an unknown platform is an error
+(no silent fallback that would hide the device).
 """
 
 import dataclasses
 
 import numpy as np
+import pytest
 
-from monte_carlo_path_tracing_tpu.ops.intersect import (
-    AUTO_CULL_MIN_TRIS, auto_policy,
-)
+from monte_carlo_path_tracing_tpu.ops.intersect import impl_for_platform
 from monte_carlo_path_tracing_tpu.render.renderer import render_image_regen
 from monte_carlo_path_tracing_tpu.utils.config import RenderConfig
 
 
-def test_policy_picks_per_triangle_count():
-    # bundled scenes (~3k) and the 10k variant: plain all-pairs
-    for t in (182, 3136, 10244):
-        pol = auto_policy(t)
-        assert not pol["cull"] and not pol["ray_sort"], (t, pol)
-        assert pol["cull_coherent"]
-    # at and above the measured crossover: sort+cull on (the chunked
-    # composition keeps the resident culled kernel usable at any T)
-    for t in (30404, AUTO_CULL_MIN_TRIS, 103448, 1_000_000):
-        pol = auto_policy(t)
-        assert pol["cull"] and pol["ray_sort"], (t, pol)
-        assert pol["cull_coherent"]
-    assert AUTO_CULL_MIN_TRIS < 30404
+@pytest.mark.parametrize(
+    "platform,impl", [("gpu", "pallas"), ("cpu", "matmul"), ("metal", None)]
+)
+def test_impl_for_platform(platform, impl):
+    if impl is None:
+        with pytest.raises(ValueError, match="no intersect implementation"):
+            impl_for_platform(platform)
+    else:
+        assert impl_for_platform(platform) == impl
 
 
 def test_auto_matches_all_pairs_below_crossover(cornell_scene):
-    """At bundled-scene scale the policy turns nothing on, so auto must be
-    the identical program (exact image equality)."""
+    """accel='auto' is the all-pairs engine: the identical program (exact
+    image equality)."""
     s = dataclasses.replace(
         cornell_scene,
         camera=dataclasses.replace(cornell_scene.camera, width=16, height=12),
@@ -47,52 +40,10 @@ def test_auto_matches_all_pairs_below_crossover(cornell_scene):
     np.testing.assert_array_equal(a.image, b.image)
 
 
-def test_chunked_cull_composition_matches(cornell_scene, monkeypatch):
-    """Above CULL_CHUNK_TRIS the culled path runs per morton-contiguous
-    chunk and min-composes hits / ORs occlusion in XLA — shrink the chunk
-    size so the bundled scene exercises the composition, and require
-    identical results to the unchunked exact path."""
-    import jax.numpy as jnp
-
-    from monte_carlo_path_tracing_tpu.integrator.regen import _primary_dirs
-    from monte_carlo_path_tracing_tpu.ops import intersect as ops_intersect
-    from monte_carlo_path_tracing_tpu.render.camera import camera_basis, pixel_len
-
-    s = dataclasses.replace(
-        cornell_scene,
-        camera=dataclasses.replace(cornell_scene.camera, width=24, height=16),
-    )
-    cam = s.camera
-    u_ax, v_ax, n_ax, dist = camera_basis(cam)
-    plen = pixel_len(cam, dist)
-    n = 24 * 16
-    ro, rd = _primary_dirs(cam, u_ax, v_ax, n_ax, dist, plen,
-                           jnp.arange(n, dtype=jnp.int32))
-    ex = jnp.full((n,), ops_intersect.NO_HIT, jnp.int32)
-    accel = ops_intersect.build_accel(s, block=64)   # 192 tris -> 3 chunks
-    ref = ops_intersect.intersect(accel, ro, rd, ex, impl="pallas",
-                                  mode="vpu", cull=False)
-    monkeypatch.setattr(ops_intersect, "CULL_CHUNK_TRIS", 64)
-    chunked = ops_intersect.intersect(accel, ro, rd, ex, impl="pallas",
-                                      mode="vpu", cull=True)
-    np.testing.assert_array_equal(np.asarray(chunked.tri_id),
-                                  np.asarray(ref.tri_id))
-    np.testing.assert_allclose(np.asarray(chunked.t), np.asarray(ref.t),
-                               rtol=1e-6)
-
-    t_max = jnp.full((n,), 5.0)
-    occ_ref = ops_intersect.occluded(accel, ro, rd, t_max, ex,
-                                     impl="pallas", mode="vpu", cull=False)
-    occ_chunk = ops_intersect.occluded(accel, ro, rd, t_max, ex,
-                                       impl="pallas", mode="vpu", cull=True)
-    np.testing.assert_array_equal(np.asarray(occ_chunk), np.asarray(occ_ref))
-
-
 def test_bathroom_scene_exercises_cull_window():
     """The bundled bathroom scene (the reference's third scene slot,
-    main.cpp:19-21 commented constants) sits INSIDE the sort+cull window,
-    so the default accel='auto' exercises the culled configuration on a
-    bundled scene; smoke-render it."""
+    main.cpp:19-21 commented constants, ~30k triangles — ten times the
+    other scenes) renders through the default path; smoke-render it."""
     import os
 
     from monte_carlo_path_tracing_tpu.scene import load_scene
@@ -100,9 +51,7 @@ def test_bathroom_scene_exercises_cull_window():
     path = os.path.join(os.path.dirname(__file__), "..", "scenes",
                         "bathroom", "bathroom.obj")
     s = load_scene(path)
-    assert s.num_tris >= AUTO_CULL_MIN_TRIS, s.num_tris
-    pol = auto_policy(s.num_tris)
-    assert pol["cull"] and pol["ray_sort"]
+    assert s.num_tris > 20_000, s.num_tris
     s = dataclasses.replace(
         s, camera=dataclasses.replace(s.camera, width=16, height=12))
     cfg = RenderConfig(width=16, height=12, spp=1, estimator="mis",

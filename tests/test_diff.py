@@ -216,7 +216,7 @@ def test_inverse_rendering_joint_four_families(cornell_scene, veach_scene):
 
 def test_twoscene_artifact_gates():
     """The committed one-run all-four-family artifact
-    (scripts/tpu_inverse_twoscene.py, VERDICT r4 item 8) must keep its
+    (scripts/inverse_twoscene.py) must keep its
     gates: kd (cornell) <= 0.06 AND ns_log (veach) <= 0.2 from a SINGLE
     optimization, plus every family improved vs its init error."""
     import json

@@ -119,8 +119,8 @@ def test_regen_ref_mis_weights_and_uniform_sampler(cornell_scene):
 
 
 def test_regen_ray_sort_invariance(cornell_scene):
-    """cfg.ray_sort (lane permutation by direction/morton key, via the MXU
-    radix sort) must not change the image: streams are keyed by
+    """cfg.ray_sort (lane permutation by direction/morton key) must not
+    change the image: streams are keyed by
     (sample, pixel, depth), never by lane. Tolerance is f32 round-off (the
     permutation changes matmul tiling)."""
     scene = _small(cornell_scene)

@@ -1,4 +1,4 @@
-"""ops/sort.py: the MXU counting/radix sort vs jnp.argsort(stable)."""
+"""ops/sort.py: the matmul-form counting/radix sort vs jnp.argsort(stable)."""
 
 import numpy as np
 import pytest
